@@ -1,12 +1,15 @@
 """Command line: run the port's SLAM on a config and report the ATE.
 
     python -m nice_slam_tpu_torch configs/Synthetic/synthetic.yaml \
-        [--output DIR] [--device cpu] [--seed N]
+        [--output DIR] [--resume] [--device cpu] [--seed N]
 
 The scene config layers over configs/nice_slam.yaml (paths relative to the
 working directory, as for run.py).  Runs on CUDA unless `--device cpu` is
-given.  With --output, writes trajectory.npz (estimated and ground-truth
-c2w) and ate.json there.
+given.  The run's output directory is --output, else the config's
+`data.output`: checkpoints go to `ckpts/`, meshes to `mesh/`, one line per
+frame to `metrics.jsonl`, and at the end trajectory.npz (estimated and
+ground-truth c2w) and ate.json.  --resume restarts from the newest
+checkpoint in `ckpts/` (from the first frame when there is none).
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ def main() -> None:
         description='nice_slam_tpu_torch: NICE-SLAM on PyTorch/CUDA')
     parser.add_argument('config', type=str, help='path to scene config')
     parser.add_argument('--output', type=str, default=None,
-                        help='directory for trajectory.npz and ate.json')
+                        help="the run's output directory (default: the "
+                             "config's data.output)")
+    parser.add_argument('--resume', action='store_true',
+                        help='resume from the latest checkpoint')
     parser.add_argument('--device', type=str, default=None,
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument('--seed', type=int, default=0)
@@ -31,20 +37,27 @@ def main() -> None:
 
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     from nice_slam_tpu_torch.eval.ate import evaluate_ate
+    from nice_slam_tpu_torch.utils.ckpt import (
+        latest_checkpoint, load_checkpoint)
     from nice_slam_tpu_torch.utils.config import load_config
 
     cfg = load_config(args.config, 'configs/nice_slam.yaml')
-    slam = SlamSystem(cfg, device=args.device, seed=args.seed)
-    print(f'INFO: running on {slam.device}')
-    slam.run()
+    slam = SlamSystem(cfg, device=args.device, seed=args.seed,
+                      output=args.output)
+    print(f'INFO: running on {slam.device}; output folder is {slam.output}')
+    start = 0
+    if args.resume:
+        path = latest_checkpoint(os.path.join(slam.output, 'ckpts'))
+        if path is not None:
+            start = slam.restore(load_checkpoint(path))
+            print(f'INFO: resumed from {path} at frame {start}')
+    slam.run(start)
     ate = evaluate_ate(slam.estimate_c2w, slam.gt_c2w)
     print('INFO: done.', json.dumps({**slam.timers.summary(), **ate}))
-    if args.output:
-        os.makedirs(args.output, exist_ok=True)
-        np.savez(os.path.join(args.output, 'trajectory.npz'),
-                 estimate_c2w=slam.estimate_c2w, gt_c2w=slam.gt_c2w)
-        with open(os.path.join(args.output, 'ate.json'), 'w') as f:
-            json.dump(ate, f, indent=1)
+    np.savez(os.path.join(slam.output, 'trajectory.npz'),
+             estimate_c2w=slam.estimate_c2w, gt_c2w=slam.gt_c2w)
+    with open(os.path.join(slam.output, 'ate.json'), 'w') as f:
+        json.dump(ate, f, indent=1)
 
 
 if __name__ == '__main__':

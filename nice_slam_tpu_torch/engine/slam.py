@@ -8,12 +8,21 @@
 Tracking renders against a corner-expanded snapshot of the volumes that is
 rebuilt after each mapping commit.  The mapper writes the volumes, the
 trainable decoders and (with BA) the keyframe poses; the coarse mapper
-owns the coarse volume and its own keyframe list.  Checkpoints, meshing,
-visualization and the overlapped sync modes are not ported yet.
+owns the coarse volume and its own keyframe list.
+
+Services after each mapped frame, as in the JAX package: a checkpoint
+every `ckpt_freq` frames and at the last frame (`<output>/ckpts/`), a mesh
+every `mesh_freq` frames (on a background thread when `meshing.async`), the
+final mesh and, with `meshing.eval_rec`, the evaluation mesh
+(`<output>/mesh/`); one line per frame in `<output>/metrics.jsonl`.
+Visualization and the overlapped sync modes are not ported yet.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import copy
+import json
 import os
 import time
 import warnings
@@ -30,11 +39,13 @@ from nice_slam_tpu_torch.engine.mapper import (
     MapperConfig, lr_table, map_step, stage_schedule)
 from nice_slam_tpu_torch.engine.tracker import const_speed_init, track_frame
 from nice_slam_tpu_torch.io.datasets import get_dataset
+from nice_slam_tpu_torch.mesh.mesher import Mesher
 from nice_slam_tpu_torch.models.decoders import init_nice_decoders
 from nice_slam_tpu_torch.models.grids import (
     grid_world_coords, init_grids, prepare_grids, static_grid_shapes)
 from nice_slam_tpu_torch.render.renderer import SceneModel
 from nice_slam_tpu_torch.utils import config as cfgutil
+from nice_slam_tpu_torch.utils.ckpt import save_checkpoint
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,9 +65,13 @@ class PhaseTimers:
     """Per-call wall-clock records (device work included: each call ends
     with a host read or a synchronize).  `track` holds (frame, seconds);
     `maps` holds (frame, kind, iterations, seconds) with kind one of
-    'first', 'coarse', 'normal', 'refine'."""
+    'first', 'coarse', 'normal', 'refine'; `meshes` holds (file name,
+    seconds, the mesher's seconds per piece) per extraction and `mesh_s`
+    their sum."""
     track: list = field(default_factory=list)
     maps: list = field(default_factory=list)
+    meshes: list = field(default_factory=list)
+    mesh_s: float = 0.0
 
     def summary(self) -> dict:
         map_s = sum(s for _, kind, _, s in self.maps if kind != 'coarse')
@@ -65,6 +80,7 @@ class PhaseTimers:
         out = {'track_s': track_s, 'map_s': map_s,
                'coarse_map_s': sum(s for _, kind, _, s in self.maps
                                    if kind == 'coarse'),
+               'mesh_s': self.mesh_s,
                'frames_tracked': len(self.track),
                'frames_mapped': sum(kind != 'coarse'
                                     for _, kind, _, _ in self.maps),
@@ -80,7 +96,7 @@ class SlamSystem:
     """Owns all SLAM state and drives the strict schedule (NICE mode)."""
 
     def __init__(self, cfg: dict, *, device=None, seed: int = 0,
-                 verbose: bool | None = None):
+                 verbose: bool | None = None, output: str | None = None):
         self.device = resolve_device(device)
         # true f32 matmuls: reduced-precision passes destabilize the pose
         # optimization over long sequences (the JAX package pins the same)
@@ -91,6 +107,10 @@ class SlamSystem:
         self.cfg = cfg
         self.verbose = (cfg.get('verbose', False) if verbose is None
                         else verbose)
+        self.output = output or cfg['data'].get('output', 'output/run')
+        for sub in ('ckpts', 'mesh'):
+            os.makedirs(os.path.join(self.output, sub), exist_ok=True)
+        self.metrics_path = os.path.join(self.output, 'metrics.jsonl')
         self.intr = cfgutil.intrinsics_from_cfg(cfg)
         self.rcfg = cfgutil.render_config_from_cfg(cfg)
         self.dcfg = cfgutil.decoder_config_from_cfg(cfg)
@@ -102,6 +122,21 @@ class SlamSystem:
             self.coarse_mcfg = cfgutil.mapper_config_from_cfg(
                 cfg, coarse_mapper=True)
         self.gt_camera = bool(cfg['tracking'].get('gt_camera', False))
+        # service cadences (mapping.*, meshing.*)
+        m = cfg['mapping']
+        self.ckpt_freq = int(m.get('ckpt_freq', 500))
+        # ckpt.compress_images: false -> bit-faithful resume (utils/ckpt.py)
+        self.ckpt_compress = bool(
+            cfg.get('ckpt', {}).get('compress_images', True))
+        self.mesh_freq = int(m.get('mesh_freq', 50))
+        self.no_mesh_first = bool(m.get('no_mesh_on_first_frame', True))
+        self.no_log_first = bool(m.get('no_log_on_first_frame', True))
+        self.eval_rec = bool(cfg.get('meshing', {}).get('eval_rec', False))
+        self.mesh_async = bool(cfg.get('meshing', {}).get('async', True))
+        self.check_invariants = bool(
+            cfg.get('debug', {}).get('check_invariants', False))
+        self._mesh_pool = None
+        self._mesh_future = None
 
         dev = self.device
         self.model = SceneModel(
@@ -161,6 +196,9 @@ class SlamSystem:
         # next mapping commit
         self._tracking_grids = None
         self.timers = PhaseTimers()
+        self.mapping_idx = -1
+        self.mesher = Mesher(cfgutil.mesher_config_from_cfg(cfg), self.model,
+                             self.intr, rcfg=self.rcfg)
 
     # ------------------------------------------------------------------
     # helpers
@@ -349,19 +387,154 @@ class SlamSystem:
                     est_c2w=cur_c2w.copy(), gt_c2w=np.asarray(gt_c2w_np)))
 
         self._sync()
+        if not coarse:
+            self.mapping_idx = idx
         kind = ('coarse' if coarse else 'first' if first
                 else 'refine' if refine else 'normal')
         self.timers.maps.append((idx, kind, n_iters * outer_iters,
                                  time.perf_counter() - t0))
 
     # ------------------------------------------------------------------
+    # services: checkpoint / mesh
+    # ------------------------------------------------------------------
+
+    def checkpoint_state(self) -> dict:
+        """Everything a resumed run needs (utils/ckpt.py): the map, the
+        poses, both keyframe stores, the schedule position and both
+        random streams."""
+        return {
+            'grids': {k: g.detach() for k, g in self.grids.items()},
+            'decoders': {name: dec.state_dict()
+                         for name, dec in self.decoders.items()},
+            'estimate_c2w': self.estimate_c2w,
+            'gt_c2w': self.gt_c2w,
+            'keyframes': [vars(kf) for kf in self.keyframes.frames],
+            # the coarse store shares the images; its poses are its own
+            'coarse_keyframes': [{'idx': kf.idx, 'est_c2w': kf.est_c2w}
+                                 for kf in self.coarse_keyframes.frames],
+            'mapping_idx': self.mapping_idx,
+            'generator_state': self.generator.get_state(),
+            'np_rng_state': self.np_rng.bit_generator.state,
+        }
+
+    def save_ckpt(self, idx: int) -> str:
+        path = os.path.join(self.output, 'ckpts', f'{idx:05d}.ckpt')
+        save_checkpoint(path, self.checkpoint_state(),
+                        compress_images=self.ckpt_compress)
+        if self.verbose:
+            print(f'INFO: checkpoint saved to {path}')
+        return path
+
+    def restore(self, state: dict) -> int:
+        """Resume from `checkpoint_state()` output (as loaded by
+        utils/ckpt.load_checkpoint); returns the next frame to process."""
+        with torch.no_grad():
+            for name, g in self.grids.items():
+                g.copy_(torch.as_tensor(state['grids'][name]).reshape(
+                    g.shape))
+        for name, sd in state['decoders'].items():
+            self.decoders[name].load_state_dict(
+                {k: torch.as_tensor(v) for k, v in sd.items()})
+        self._tracking_grids = None
+        self._frames.clear()
+        self.estimate_c2w = np.asarray(state['estimate_c2w'])
+        self.gt_c2w = np.asarray(state['gt_c2w'])
+        self.keyframes = KeyframeStore(
+            [Keyframe(idx=int(kf['idx']), color=np.asarray(kf['color']),
+                      depth=np.asarray(kf['depth']),
+                      est_c2w=np.asarray(kf['est_c2w']),
+                      gt_c2w=np.asarray(kf['gt_c2w']))
+             for kf in state['keyframes']])
+        by_idx = {kf.idx: kf for kf in self.keyframes.frames}
+        self.coarse_keyframes = KeyframeStore(
+            [Keyframe(idx=int(kf['idx']), color=by_idx[kf['idx']].color,
+                      depth=by_idx[kf['idx']].depth,
+                      est_c2w=np.asarray(kf['est_c2w']),
+                      gt_c2w=by_idx[kf['idx']].gt_c2w)
+             for kf in state.get('coarse_keyframes', [])])
+        self.mapping_idx = int(state['mapping_idx'])
+        self.generator.set_state(torch.as_tensor(state['generator_state']))
+        self.np_rng = np.random.default_rng()
+        self.np_rng.bit_generator.state = state['np_rng_state']
+        return self.mapping_idx + 1
+
+    def mesh_now(self, idx: int, final: bool = False) -> str | None:
+        """Extract a mesh.  Periodic meshes run on a background thread
+        while the SLAM loop goes on; final meshes block.  One mesh in
+        flight at a time.  The mapper updates the grids, the decoders and
+        the keyframe poses in place, so an async mesh works on copies made
+        here, on the current stream, before it starts."""
+        if self.mesher is None:
+            return None
+        self.join_mesh()
+        name = 'final_mesh.ply' if final else f'{idx:05d}_mesh.ply'
+        path = os.path.join(self.output, 'mesh', name)
+        kfs = KeyframeStore([Keyframe(kf.idx, kf.color, kf.depth,
+                                      kf.est_c2w.copy(), kf.gt_c2w)
+                             for kf in self.keyframes.frames])
+        est = self.estimate_c2w.copy()
+        if final or not self.mesh_async:
+            self._extract(path, self.decoders, self.grids, kfs, est, idx)
+            return path
+        with torch.no_grad():
+            decoders = copy.deepcopy(self.decoders)
+            grids = {k: g.detach().clone() for k, g in self.grids.items()}
+        if self._mesh_pool is None:
+            self._mesh_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1)
+        self._mesh_future = self._mesh_pool.submit(
+            self._extract, path, decoders, grids, kfs, est, idx)
+        return path
+
+    def _extract(self, path: str, decoders, grids, keyframes, est, idx: int,
+                 **kwargs) -> None:
+        t0 = time.perf_counter()
+        self.mesher.extract(path, decoders, grids, keyframes, est, idx,
+                            **kwargs)
+        seconds = time.perf_counter() - t0
+        self.timers.meshes.append((os.path.basename(path), seconds,
+                                   dict(self.mesher.timings)))
+        self.timers.mesh_s += seconds
+
+    def join_mesh(self) -> None:
+        """Wait for the background mesh, if any (its error is raised
+        here)."""
+        if self._mesh_future is not None:
+            future, self._mesh_future = self._mesh_future, None
+            future.result()
+
+    def _log_metrics(self, idx: int) -> None:
+        gt_err = float(np.linalg.norm(
+            self.estimate_c2w[idx][:3, 3] - self.gt_c2w[idx][:3, 3]))
+        rec = {'frame': idx, 'pose_err_vs_gt': round(gt_err, 5),
+               'mapped': self.mapping_idx == idx,
+               'n_keyframes': len(self.keyframes),
+               **self.timers.summary()}
+        with open(self.metrics_path, 'a') as f:
+            f.write(json.dumps(rec) + '\n')
+
+    def _assert_invariants(self, idx: int) -> None:
+        """Finite map state and a valid pose."""
+        for name, g in self.grids.items():
+            assert bool(torch.isfinite(g).all()), f'grid {name} non-finite'
+        for name, p in self.decoders.named_parameters():
+            assert bool(torch.isfinite(p).all()), f'decoder {name} non-finite'
+        c2w = self.estimate_c2w[idx]
+        assert np.isfinite(c2w).all(), f'pose {idx} non-finite'
+        rot = c2w[:3, :3]
+        err = np.abs(rot @ rot.T - np.eye(3)).max()
+        assert err < 1e-2, f'pose {idx} rotation not orthonormal ({err})'
+
+    # ------------------------------------------------------------------
     # main loop
     # ------------------------------------------------------------------
 
     def step(self, idx: int) -> None:
-        """Process one frame under the strict schedule."""
+        """Process one frame under the strict schedule, then the services
+        of a mapped frame."""
         _, color_np, depth_np, gt_c2w_np = self.frame_reader[idx]
         every = self.mcfg.every_frame
+        last = idx == self.n_img - 1
         if idx == 0:
             self.estimate_c2w[0] = gt_c2w_np
             self.gt_c2w[0] = gt_c2w_np
@@ -372,18 +545,48 @@ class SlamSystem:
                                coarse=True, first=True)
         else:
             self.track(idx, color_np, depth_np, gt_c2w_np)
-            if idx % every == 0 or idx == self.n_img - 1:
+            if idx % every == 0 or last:
                 if self.coarse_enabled:
                     self.map_frame(idx, color_np, depth_np, gt_c2w_np,
                                    coarse=True)
                 self.map_frame(idx, color_np, depth_np, gt_c2w_np)
+
+        if idx == 0 or idx % every == 0 or last:
+            if ((idx % self.ckpt_freq == 0
+                 and not (idx == 0 and self.no_log_first)) or last):
+                self.save_ckpt(idx)
+            if (idx % self.mesh_freq == 0
+                    and not (idx == 0 and self.no_mesh_first)):
+                self.mesh_now(idx)
+            if last:
+                self.mesh_now(idx, final=True)
+                if self.eval_rec and self.mesher is not None:
+                    self._extract(
+                        os.path.join(self.output, 'mesh',
+                                     'final_mesh_eval_rec.ply'),
+                        self.decoders, self.grids, self.keyframes,
+                        self.estimate_c2w, idx, show_forecast=False,
+                        clean_mesh=True, get_mask_use_all_frames=True)
+        if self.check_invariants:
+            self._assert_invariants(idx)
+        self._log_metrics(idx)
         # keep device copies of keyframes only
         if idx not in self.keyframes.indices \
                 and idx not in self.coarse_keyframes.indices:
             self._frames.pop(idx, None)
 
-    def run(self) -> None:
-        for idx in range(self.n_img):
-            self.step(idx)
+    def run(self, start: int = 0) -> None:
+        """Frames `start` .. the last; the background mesh is joined and
+        its thread stopped however the loop ends."""
+        try:
+            for idx in range(start, self.n_img):
+                self.step(idx)
+        finally:
+            try:
+                self.join_mesh()
+            finally:
+                if self._mesh_pool is not None:
+                    self._mesh_pool.shutdown()
+                    self._mesh_pool = None
         if self.verbose:
             print('INFO: run complete:', self.timers.summary())

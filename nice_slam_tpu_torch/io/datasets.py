@@ -70,6 +70,36 @@ class SyntheticBox:
                 pose.astype(np.float32))
 
 
+def synthetic_gt_mesh(box, obstacles=None, resolution=192):
+    """Ground-truth surface mesh of the synthetic scene (room walls and
+    obstacle faces), for scoring a SLAM mesh with eval/recon.py.
+
+    The free-space field f(p) = min(room interior distance, -obstacle
+    interior distances) is analytic; its zero level set, extracted with the
+    native marching tetrahedra at `resolution`^3, is the scene surface
+    (vertex error bounded by the cell diagonal).
+    Returns (vertices [N, 3] float32, triangles [M, 3] int32).
+    """
+    from nice_slam_tpu_torch.mesh.native import marching_tetrahedra
+    box = np.asarray(box, dtype=np.float64)
+    if obstacles is None:
+        obstacles = default_obstacles(box)
+    pad = 0.05 * (box[:, 1] - box[:, 0])
+    xs, ys, zs = (np.linspace(box[a, 0] - pad[a], box[a, 1] + pad[a],
+                              resolution) for a in range(3))
+    p = np.stack(np.meshgrid(xs, ys, zs, indexing='ij'), axis=-1)
+
+    def inside_dist(b):
+        """Positive inside box b: the distance to its nearest face."""
+        return np.minimum((p - b[:, 0]).min(axis=-1),
+                          (b[:, 1] - p).min(axis=-1))
+
+    f = inside_dist(box)
+    for ob in obstacles:
+        f = np.minimum(f, -inside_dist(np.asarray(ob, dtype=np.float64)))
+    return marching_tetrahedra(f.astype(np.float32), xs, ys, zs, 0.0)
+
+
 def default_obstacles(box):
     """Three interior boxes, so depth varies with every pose axis."""
     lo = box[:, 0]

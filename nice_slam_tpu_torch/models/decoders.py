@@ -8,6 +8,9 @@
   * `nice_eval`: coarse -> occ; middle -> occ; fine -> fine + middle occ
     (the middle feature enters the fine decoder with its gradient stopped);
     color -> rgb from the color decoder with occ from fine + middle.
+  * `mlp_dispatch`: `MLP.forward`, or with `fused=True` the fused CUDA
+    kernel of ops/fused_mlp.py (Fourier embedding with grid features only;
+    other configurations take `MLP.forward`).
 
 Module and parameter names follow the reference's torch decoders
 (`pts_linears.i`, `fc_c.i`, `output_linear`, `embedder._B`), so a pretrained
@@ -26,6 +29,7 @@ from torch.nn import functional as F
 
 from nice_slam_tpu_torch.models.embeddings import (
     GaussianFourierFeatures, nerf_embed, nerf_embed_dim)
+from nice_slam_tpu_torch.ops.fused_mlp import fused_mlp
 from nice_slam_tpu_torch.ops.trilinear import sample_grid_feature
 
 
@@ -161,27 +165,39 @@ def init_nice_decoders(cfg: DecoderConfig, *, generator: torch.Generator,
     return nn.ModuleDict(decs)
 
 
+def mlp_dispatch(mlp: MLP, p: torch.Tensor, c_feat: torch.Tensor | None,
+                 *, fused: bool = False) -> torch.Tensor:
+    """`mlp(p, c_feat)`, or the fused kernel when asked for and applicable
+    (the Fourier-embedding MLP with grid features; the kernel takes
+    contiguous inputs, so the feature slices are made contiguous)."""
+    if (fused and mlp.cfg.pos_embedding_method == 'fourier'
+            and c_feat is not None):
+        return fused_mlp(mlp, p.contiguous(), c_feat.contiguous())
+    return mlp(p, c_feat)
+
+
 def nice_eval(decoders: Mapping[str, nn.Module], grids: Mapping, p:
               torch.Tensor, stage: str, cfg: DecoderConfig,
               bound: torch.Tensor, coarse_bound: torch.Tensor | None = None,
-              grid_shapes: tuple = ()) -> torch.Tensor:
+              grid_shapes: tuple = (), fused: bool = False) -> torch.Tensor:
     """Evaluate the NICE model at world points [N, 3] for `stage`.
 
     `grids` maps volume names to flat [M, C] tensors (shapes from
     `grid_shapes`, ((name, (nx, ny, nz)), ...)) or `ExpandedGrid`s; a
     'finecolor' entry is the channel-fused fine+color buffer of
-    `models.grids.prepare_grids`, split after one gathered row.
+    `models.grids.prepare_grids`, split after one gathered row.  `fused`
+    routes the middle, fine and color MLPs through `mlp_dispatch`'s kernel.
     Returns raw [N, 4] (r, g, b, occ logit); rgb is zero except in 'color'.
     """
     shapes = dict(grid_shapes)
-    fused = []
+    finecolor = []   # the one gathered fine+color row, once sampled
 
     def feat_of(name, bnd):
         if name in ('fine', 'color') and 'finecolor' in grids:
-            if not fused:
-                fused.append(sample_grid_feature(
+            if not finecolor:
+                finecolor.append(sample_grid_feature(
                     grids['finecolor'], p, bnd, shapes.get('fine')))
-            both = fused[0]
+            both = finecolor[0]
             return (both[..., :cfg.c_dim] if name == 'fine'
                     else both[..., cfg.c_dim:])
         return sample_grid_feature(grids[name], p, bnd, shapes.get(name))
@@ -192,17 +208,20 @@ def nice_eval(decoders: Mapping[str, nn.Module], grids: Mapping, p:
         return torch.cat([zeros3, occ[..., None]], dim=-1)
 
     c_mid = feat_of('middle', bound)
-    middle_occ = decoders['middle'](p, c_mid)
+    middle_occ = mlp_dispatch(decoders['middle'], p, c_mid, fused=fused)
     if stage == 'middle':
         return torch.cat([zeros3, middle_occ[..., None]], dim=-1)
 
     c_fine = feat_of('fine', bound)
-    fine_occ = decoders['fine'](p, torch.cat([c_fine, c_mid.detach()], -1))
+    fine_occ = mlp_dispatch(decoders['fine'], p,
+                            torch.cat([c_fine, c_mid.detach()], -1),
+                            fused=fused)
     occ = fine_occ + middle_occ
     if stage == 'fine':
         return torch.cat([zeros3, occ[..., None]], dim=-1)
 
     if stage != 'color':
         raise ValueError(f'unknown stage {stage!r}')
-    rgb_raw = decoders['color'](p, feat_of('color', bound))
+    rgb_raw = mlp_dispatch(decoders['color'], p, feat_of('color', bound),
+                           fused=fused)
     return torch.cat([rgb_raw[..., :3], occ[..., None]], dim=-1)

@@ -23,14 +23,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, 'csrc', 'expand.cu')
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build')
+from nice_slam_tpu_torch.ops.build import (
+    BUILD_DIR, CSRC, compile_cuda, is_stale)
+
+SOURCE = os.path.join(CSRC, 'expand.cu')
 LIBRARY = os.path.join(BUILD_DIR, 'libnst_expand.so')
 
 LAUNCHES = {'expand_corners': 0, 'fold_corners': 0}
@@ -43,34 +42,16 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
-    if not os.path.exists(path):
-        raise RuntimeError('nvcc not found: the CUDA kernels of '
-                           f'{SOURCE} need the CUDA toolkit to build')
-    return path
-
-
 def build_library() -> str:
-    """Compile csrc/expand.cu for sm_90a into build/ (atomically replacing
-    any older build) and return the compiler's register/spill report."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{LIBRARY}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-           '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
-           '-o', tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
-    os.replace(tmp, LIBRARY)
-    return res.stderr
+    """Compile csrc/expand.cu for sm_90a into build/ and return the
+    compiler's register/spill report."""
+    return compile_cuda(SOURCE, LIBRARY)
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        if (not os.path.exists(LIBRARY) or os.path.getmtime(LIBRARY)
-                < os.path.getmtime(SOURCE)):
+        if is_stale(SOURCE, LIBRARY):
             build_library()
         lib = ctypes.CDLL(LIBRARY)
         for fn in (lib.nst_expand_corners, lib.nst_fold_corners):

@@ -2,7 +2,8 @@
 NICE model: near/far from sensor depth and the bbox exit, n_samples
 stratified + n_surface near-surface samples merged in depth order, decode,
 composite.  Points outside the scene bound get occupancy logit 100 (an
-opaque wall at the boundary).
+opaque wall at the boundary).  `render_image` renders a whole frame in ray
+chunks.
 """
 
 from __future__ import annotations
@@ -12,10 +13,12 @@ from typing import Mapping, NamedTuple
 import torch
 from torch import nn
 
+from nice_slam_tpu_torch.core.cameras import Intrinsics, rays_full_image
 from nice_slam_tpu_torch.core.composite import composite_rays
 from nice_slam_tpu_torch.core.sampling import (
     near_far_from_depth, stratified_z_vals, surface_z_vals)
 from nice_slam_tpu_torch.models.decoders import DecoderConfig, nice_eval
+from nice_slam_tpu_torch.models.grids import prepare_grids
 
 
 class RenderConfig(NamedTuple):
@@ -26,6 +29,7 @@ class RenderConfig(NamedTuple):
     n_importance: int = 0
     lindisp: bool = False
     perturb: float = 0.0
+    ray_chunk: int = 100000   # rays per chunk of render_image
     # pose gradient through the z sampling locations
     # (core.sampling.near_far_from_depth); False = reference semantics
     grad_z: bool = False
@@ -34,19 +38,25 @@ class RenderConfig(NamedTuple):
 class SceneModel(NamedTuple):
     """Static model description plus the scene bounds ([3, 2] tensors on
     the model's device; coarse_bound is the enlarged bound of the coarse
-    volume) and the ((name, (nx, ny, nz)), ...) grid shapes."""
+    volume) and the ((name, (nx, ny, nz)), ...) grid shapes.  `fused_eval`
+    sends the decoder MLPs through the fused forward kernel
+    (ops/fused_mlp.py); the eval-only paths (mesher, full-frame renders)
+    set it with `model._replace(fused_eval=True)`, tracking and mapping
+    keep the plain path."""
 
     decoder: DecoderConfig
     bound: torch.Tensor
     coarse_bound: torch.Tensor | None = None
     grid_shapes: tuple = ()
+    fused_eval: bool = False
 
 
 def eval_raw(decoders: Mapping[str, nn.Module], grids: Mapping,
              p: torch.Tensor, stage: str, model: SceneModel) -> torch.Tensor:
     """Decode points [N, 3] to raw [N, 4]; out-of-bound -> occupancy 100."""
     raw = nice_eval(decoders, grids, p, stage, model.decoder, model.bound,
-                    model.coarse_bound, model.grid_shapes)
+                    model.coarse_bound, model.grid_shapes,
+                    fused=model.fused_eval)
     inside = torch.all((p > model.bound[:, 0]) & (p < model.bound[:, 1]),
                        dim=-1)
     occ = torch.where(inside, raw[..., 3], torch.full_like(raw[..., 3],
@@ -94,3 +104,36 @@ def render_rays(decoders: Mapping[str, nn.Module], grids: Mapping,
     n_rays, s = z_vals.shape
     raw = eval_raw(decoders, grids, pts.reshape(-1, 3), stage, model)
     return composite_rays(raw.reshape(n_rays, s, 4), z_vals)
+
+
+def render_image(decoders: Mapping[str, nn.Module], grids: Mapping,
+                 c2w: torch.Tensor, intr: Intrinsics, *, stage: str,
+                 model: SceneModel, rcfg: RenderConfig,
+                 gt_depth: torch.Tensor | None = None):
+    """Render a full frame in chunks of `rcfg.ray_chunk` rays, the last one
+    padded to full size (as the JAX package's `lax.map` over fixed
+    chunks), under `no_grad`.  `grids` are the stored volumes; the ones the
+    stage samples are corner-expanded once for the whole frame.
+
+    Returns (depth [H, W], depth_var [H, W], color [H, W, 3]).
+    """
+    with torch.no_grad():
+        grids = prepare_grids(grids, model.grid_shapes, stage=stage)
+        rays_o, rays_d = rays_full_image(c2w, intr)
+        n = intr.H * intr.W
+        chunk = min(rcfg.ray_chunk, n)
+        pad = (-n) % chunk
+        rays_o = torch.nn.functional.pad(rays_o, (0, 0, 0, pad))
+        rays_d = torch.nn.functional.pad(rays_d, (0, 0, 0, pad), value=1.0)
+        d_flat = (None if gt_depth is None else
+                  torch.nn.functional.pad(gt_depth.reshape(-1), (0, pad)))
+        outs = []
+        for i in range(0, n + pad, chunk):
+            depth, var, color, _ = render_rays(
+                decoders, grids, rays_o[i:i + chunk], rays_d[i:i + chunk],
+                stage=stage, model=model, rcfg=rcfg,
+                gt_depth=None if d_flat is None else d_flat[i:i + chunk])
+            outs.append((depth, var, color))
+        depth, var, color = (torch.cat(x)[:n] for x in zip(*outs))
+    return (depth.reshape(intr.H, intr.W), var.reshape(intr.H, intr.W),
+            color.reshape(intr.H, intr.W, 3))

@@ -16,6 +16,7 @@ import yaml
 from nice_slam_tpu_torch.core.cameras import Intrinsics
 from nice_slam_tpu_torch.engine.mapper import MapperConfig
 from nice_slam_tpu_torch.engine.tracker import TrackerConfig
+from nice_slam_tpu_torch.mesh.mesher import MesherConfig
 from nice_slam_tpu_torch.models.decoders import DecoderConfig
 from nice_slam_tpu_torch.models.grids import GridConfig, round_bound
 from nice_slam_tpu_torch.render.renderer import RenderConfig
@@ -148,3 +149,28 @@ def mapper_config_from_cfg(cfg: dict, *, coarse_mapper: bool = False
         stage_lr=stage_lr,
         max_rays_per_pass=int(m.get('max_rays_per_pass', 0)),
         coarse_mapper=coarse_mapper)
+
+
+def mesher_config_from_cfg(cfg: dict) -> MesherConfig:
+    """`meshing.*`; the marching-cubes bound is scaled by `scale`, and
+    without `mapping.marching_cubes_bound` it is the grid bound (rounded
+    and scaled, then scaled again), as in the JAX package."""
+    me = cfg.get('meshing', {})
+    scale = float(cfg.get('scale', 1.0))
+    mc_bound = cfg['mapping'].get('marching_cubes_bound',
+                                  grid_config_from_cfg(cfg).bound)
+    return MesherConfig(
+        resolution=int(me.get('resolution', 256)),
+        level_set=float(me.get('level_set', 0.0)),
+        clean_mesh=bool(me.get('clean_mesh', True)),
+        depth_test=bool(me.get('depth_test', False)),
+        mesh_coarse_level=bool(me.get('mesh_coarse_level', False)),
+        clean_mesh_bound_scale=float(me.get('clean_mesh_bound_scale', 1.02)),
+        get_largest_components=bool(me.get('get_largest_components', False)),
+        remove_small_geometry_threshold=float(
+            me.get('remove_small_geometry_threshold', 0.2)),
+        color_mesh_extraction_method=me.get(
+            'color_mesh_extraction_method', 'direct_point_query'),
+        marching_cubes_bound=tuple(tuple(float(v) * scale for v in b)
+                                   for b in mc_bound),
+        scale=scale)

@@ -65,7 +65,8 @@ def main() -> None:
                         'box': [[-2.8, 8.8], [-3.1, 5.4], [-3.4, 3.2]]}
     cfg['verbose'] = False
     cfg['mapping']['iters_first'] = 60
-    slam = SlamSystem(cfg, device='cuda', seed=0)
+    slam = SlamSystem(cfg, device='cuda', seed=0,
+                      output=os.path.join(args.out, 'run'))
     slam.step(0)
     frame = slam.frame_reader[1]
 

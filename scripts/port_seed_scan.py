@@ -54,15 +54,16 @@ def run_torch(cfg: dict, seed: int, init_from_jax: bool = False):
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     from nice_slam_tpu_torch.models.convert import (
         decoders_from_numpy, grids_from_numpy)
-    slam = SlamSystem(cfg, device='cpu', seed=seed)
-    if init_from_jax:
-        grids, decs = jax_initial_model(cfg, seed)
-        slam.grids = {k: v.requires_grad_(True)
-                      for k, v in grids_from_numpy(grids).items()}
-        with torch.no_grad():
-            slam.decoders.load_state_dict(
-                decoders_from_numpy(decs, slam.dcfg).state_dict())
-    slam.run()
+    with tempfile.TemporaryDirectory() as out:
+        slam = SlamSystem(cfg, device='cpu', seed=seed, output=out)
+        if init_from_jax:
+            grids, decs = jax_initial_model(cfg, seed)
+            slam.grids = {k: v.requires_grad_(True)
+                          for k, v in grids_from_numpy(grids).items()}
+            with torch.no_grad():
+                slam.decoders.load_state_dict(
+                    decoders_from_numpy(decs, slam.dcfg).state_dict())
+        slam.run()
     return slam.estimate_c2w, slam.gt_c2w
 
 
