@@ -9,12 +9,16 @@ both on the same inputs.  This package imports neither JAX nor anything of
 
 Layer map (same as `nice_slam_tpu/__init__.py`):
   core/      L0  cameras, pixel/depth sampling, alpha compositing
-  ops/       L0  trilinear grid interpolation; the corner-expand / fold
-                 CUDA kernels (csrc/expand.cu) and their plain versions
+  ops/       L0  trilinear grid interpolation; the CUDA kernels and their
+                 plain versions: corner expand / fold (csrc/expand.cu), row
+                 gather / scatter-add (csrc/gather.cu), fused decoder MLP
+                 (csrc/fused_mlp.cu), streaming-roofline probes
+                 (csrc/roofline.cu)
   models/    L1  NICE grids and decoders (nn.Module), pretrained import
   render/    L2  volume renderer
-  engine/    L3/L4 tracker, mapper, keyframes, strict-schedule orchestrator
-  io/        L5  dataset ingest (the analytic `synthetic` scene)
+  engine/    L3/L4 tracker, mapper, keyframes, orchestrator (strict, loose
+                 and free schedules)
+  io/        L5  dataset ingest (the analytic `synthetic` scene), prefetcher
   eval/      L7  ATE
   utils/     —   config views, masked Adam
 

@@ -1,29 +1,53 @@
-"""Single-controller SLAM orchestrator (L4); port of the strict schedule of
-`nice_slam_tpu/engine/slam.py`:
+"""Single-controller SLAM orchestrator (L4); port of
+`nice_slam_tpu/engine/slam.py` (NICE mode, one device):
 
     map(0, iters_first) [+ coarse map]; then for every frame idx >= 1:
-        track(idx); if idx % every_frame == 0 or idx is the last frame:
+        track(idx); if idx % map_cadence == 0 or idx is the last frame:
             [coarse map(idx)]; map(idx)   (the last one a color refine)
+
+`sync_method: strict` (the default) maps every `every_frame` frames and
+runs everything in that order.  `loose` and `free` are the overlapped
+modes: they map every `every_frame // 2` frames, and each mapping round
+without active BA is queued on a single mapping thread, on a CUDA stream of
+its own, while the main thread goes on tracking against its snapshot of
+the map.  Submitting a round never waits: it runs behind the rounds
+already queued.  A round ends by building the next tracking snapshot (the
+color-stage expansion of the volumes and a clone of the decoders: the
+mapper updates both in place, where JAX arrays are immutable); at each
+frame the tracker adopts the newest finished round's snapshot, and under
+`loose` it waits for the oldest rounds while its snapshot is more than
+every_frame + every_frame // 2 frames behind the frame it tracks (the
+reference's loose gate).  `free` has no gate.  Rounds with BA active
+commit on the main thread in every mode, after the queued rounds.  `free`
+runs `loose` on one device unless `sync_force_free: true`; the JAX
+package's two-device pipeline (mapping on a second device) is not ported.
+Everything that reads the map (checkpoints, meshes, the invariant checks,
+the end of the run) waits for the queued rounds first, and an error raised
+inside a round is raised there or where the tracker adopts the round.
 
 Tracking renders against a corner-expanded snapshot of the volumes that is
 rebuilt after each mapping commit.  The mapper writes the volumes, the
 trainable decoders and (with BA) the keyframe poses; the coarse mapper
-owns the coarse volume and its own keyframe list.
+owns the coarse volume and its own keyframe list.  Frames come through a
+Prefetcher (io/prefetch.py) during `run()`.
 
 Services after each mapped frame, as in the JAX package: a checkpoint
 every `ckpt_freq` frames and at the last frame (`<output>/ckpts/`), a mesh
 every `mesh_freq` frames (on a background thread when `meshing.async`), the
 final mesh and, with `meshing.eval_rec`, the evaluation mesh
 (`<output>/mesh/`); one line per frame in `<output>/metrics.jsonl`.
-Visualization and the overlapped sync modes are not ported yet.
+Visualization is not ported yet.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import contextlib
 import copy
 import json
 import os
+import threading
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -39,10 +63,12 @@ from nice_slam_tpu_torch.engine.mapper import (
     MapperConfig, lr_table, map_step, stage_schedule)
 from nice_slam_tpu_torch.engine.tracker import const_speed_init, track_frame
 from nice_slam_tpu_torch.io.datasets import get_dataset
+from nice_slam_tpu_torch.io.prefetch import Prefetcher
 from nice_slam_tpu_torch.mesh.mesher import Mesher
 from nice_slam_tpu_torch.models.decoders import init_nice_decoders
 from nice_slam_tpu_torch.models.grids import (
     grid_world_coords, init_grids, prepare_grids, static_grid_shapes)
+from nice_slam_tpu_torch.ops.trilinear import ExpandedGrid
 from nice_slam_tpu_torch.render.renderer import SceneModel
 from nice_slam_tpu_torch.utils import config as cfgutil
 from nice_slam_tpu_torch.utils.ckpt import save_checkpoint
@@ -67,13 +93,34 @@ class PhaseTimers:
     `maps` holds (frame, kind, iterations, seconds) with kind one of
     'first', 'coarse', 'normal', 'refine'; `meshes` holds (file name,
     seconds, the mesher's seconds per piece) per extraction and `mesh_s`
-    their sum."""
+    their sum.  The tracker, the mapping thread and the mesh thread add
+    records, so every access goes through the lock."""
     track: list = field(default_factory=list)
     maps: list = field(default_factory=list)
     meshes: list = field(default_factory=list)
     mesh_s: float = 0.0
+    lock: threading.Lock = field(default_factory=threading.Lock,
+                                 repr=False, compare=False)
+
+    def add_track(self, idx: int, seconds: float) -> None:
+        with self.lock:
+            self.track.append((idx, seconds))
+
+    def add_map(self, idx: int, kind: str, iters: int, seconds: float
+                ) -> None:
+        with self.lock:
+            self.maps.append((idx, kind, iters, seconds))
+
+    def add_mesh(self, name: str, seconds: float, pieces: dict) -> None:
+        with self.lock:
+            self.meshes.append((name, seconds, pieces))
+            self.mesh_s += seconds
 
     def summary(self) -> dict:
+        with self.lock:
+            return self._summary()
+
+    def _summary(self) -> dict:
         map_s = sum(s for _, kind, _, s in self.maps if kind != 'coarse')
         map_iters = sum(n for _, kind, n, _ in self.maps if kind != 'coarse')
         track_s = sum(s for _, s in self.track)
@@ -92,8 +139,13 @@ class PhaseTimers:
         return out
 
 
+# the mapping thread's pixel draws: a stream of their own, from the run seed
+_MAP_SEED_OFFSET = 7919
+
+
 class SlamSystem:
-    """Owns all SLAM state and drives the strict schedule (NICE mode)."""
+    """Owns all SLAM state and drives the schedule of `sync_method` (NICE
+    mode)."""
 
     def __init__(self, cfg: dict, *, device=None, seed: int = 0,
                  verbose: bool | None = None, output: str | None = None):
@@ -137,6 +189,21 @@ class SlamSystem:
             cfg.get('debug', {}).get('check_invariants', False))
         self._mesh_pool = None
         self._mesh_future = None
+        self.sync_method = cfg.get('sync_method', 'strict')
+        if self.sync_method not in ('strict', 'loose', 'free'):
+            raise ValueError(f'sync_method {self.sync_method!r}')
+        if self.sync_method == 'free' and not bool(
+                cfg.get('sync_force_free', False)):
+            # as in the JAX package on one local device: ungated back-to-
+            # back mapping rounds replace the tracker's snapshot every frame
+            # and contend with it for the one device
+            warnings.warn(
+                "sync_method: 'free' on a single device runs strictly "
+                "slower than 'loose' at equal accuracy (measured on the "
+                "JAX package, BASELINE.md round-4) -- using 'loose'; set "
+                "sync_force_free: true to override", UserWarning,
+                stacklevel=2)
+            self.sync_method = 'loose'
 
         dev = self.device
         self.model = SceneModel(
@@ -150,6 +217,25 @@ class SlamSystem:
         init_gen = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.np_rng = np.random.default_rng(seed)
+        # the overlapped modes map on a thread of their own, on a stream of
+        # their own, drawing pixels from a generator of their own
+        self._overlap = self.sync_method != 'strict'
+        self.map_generator = self.generator
+        self._map_stream = None
+        if self._overlap:
+            self.map_generator = torch.Generator(device=dev).manual_seed(
+                seed + _MAP_SEED_OFFSET)
+            if dev.type == 'cuda':
+                self._map_stream = torch.cuda.Stream(dev)
+        self._map_pool = None
+        # the queued mapping rounds, oldest first: (frame, future of the
+        # round's tracking snapshot); and the frame of the round (or
+        # commit) the tracker's snapshot comes from.  `refreshes` counts
+        # the snapshots adopted when done and those the loose gate waited
+        # for
+        self._rounds = collections.deque()
+        self._snapshot_idx = -1
+        self.refreshes = {'consumed': 0, 'forced': 0}
 
         self.grids = {
             name: g.to(dev).requires_grad_(True)
@@ -192,8 +278,8 @@ class SlamSystem:
                 grid_world_coords(self.gcfg, name).reshape(-1, 3),
                 device=dev)
             for name in self.grids}
-        # color-stage expansion of the volumes for tracking, kept until the
-        # next mapping commit
+        # what the tracker renders against, kept until the next mapping
+        # commit: (decoders, color-stage expansion of the volumes)
         self._tracking_grids = None
         self.timers = PhaseTimers()
         self.mapping_idx = -1
@@ -219,15 +305,68 @@ class SlamSystem:
             device=self.device))
 
     def _sync(self) -> None:
+        """Wait for the calling thread's stream (the mapping thread's own
+        under the overlapped modes)."""
         if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _build_snapshot(self):
+        """(decoders, color-stage expansion of the volumes) of the current
+        map.  The overlapped modes clone the decoders: the next mapping
+        round updates them in place while the tracker renders."""
+        with torch.no_grad():
+            grids = prepare_grids(self.grids, self.model.grid_shapes,
+                                  stage='color')
+            decoders = (copy.deepcopy(self.decoders) if self._overlap
+                        else self.decoders)
+        return decoders, grids
+
+    @property
+    def _pending_refresh(self):
+        """(frame, future) of the oldest queued mapping round, or None."""
+        return self._rounds[0] if self._rounds else None
 
     def _tracking_snapshot(self):
         if self._tracking_grids is None:
-            with torch.no_grad():
-                self._tracking_grids = prepare_grids(
-                    self.grids, self.model.grid_shapes, stage='color')
+            if self._rounds:
+                # the queued rounds write the map: take the oldest's snapshot
+                self._adopt(self._rounds.popleft(), forced=False)
+            else:
+                self._tracking_grids = self._build_snapshot()
+                self._snapshot_idx = self.mapping_idx
         return self._tracking_grids
+
+    def _adopt(self, entry, forced: bool) -> None:
+        """Adopt the snapshot of a mapping round, waiting for it (and
+        raising its error) if it is still running."""
+        pidx, future = entry
+        decoders, grids = future.result()
+        tensors = [g.e if isinstance(g, ExpandedGrid) else g
+                   for g in grids.values()] + list(decoders.parameters())
+        if self.device.type == 'cuda':
+            # made on the mapping stream, now read on this thread's stream
+            stream = torch.cuda.current_stream(self.device)
+            for t in tensors:
+                t.record_stream(stream)
+        self._tracking_grids = (decoders, grids)
+        self._snapshot_idx = pidx
+        self.refreshes['forced' if forced else 'consumed'] += 1
+
+    def _adopt_rounds(self, idx: int) -> None:
+        """Before tracking frame idx: adopt the newest finished round (the
+        rounds finish in order; each finished one's error is raised), then,
+        under loose, wait for the oldest rounds until the snapshot is at
+        most every_frame + every_frame // 2 frames behind idx."""
+        done = None
+        while self._rounds and self._rounds[0][1].done():
+            done = self._rounds.popleft()
+            done[1].result()
+        if done is not None:
+            self._adopt(done, forced=False)
+        every = self.mcfg.every_frame
+        while (self.sync_method == 'loose' and self._rounds
+               and idx - self._snapshot_idx > every + every // 2):
+            self._adopt(self._rounds.popleft(), forced=True)
 
     # ------------------------------------------------------------------
     # tracking
@@ -237,14 +376,19 @@ class SlamSystem:
         """Track one frame; returns the estimated 4x4 c2w."""
         t0 = time.perf_counter()
         color, depth = self._device_frame(idx, color_np, depth_np)
+        # overlapped modes: adopt a finished (or, under loose, gate-forced)
+        # mapping round; otherwise keep rendering against the snapshot
+        if self._rounds:
+            self._adopt_rounds(idx)
         if idx == 0 or self.gt_camera:
             c2w = np.asarray(gt_c2w_np, dtype=np.float32)
         else:
             pre = self.estimate_c2w[idx - 1]
             guess = (const_speed_init(pre, self.estimate_c2w[idx - 2])
                      if self.tcfg.const_speed and idx >= 2 else pre)
+            decoders, grids = self._tracking_snapshot()
             best_cam7, _, losses = track_frame(
-                self.decoders, self._tracking_snapshot(), color, depth,
+                decoders, grids, color, depth,
                 self._cam7(guess), model=self.model, rcfg=self.rcfg,
                 tcfg=self.tcfg, intr=self.intr, generator=self.generator)
             c2w = np.eye(4, dtype=np.float32)
@@ -256,7 +400,7 @@ class SlamSystem:
         self.estimate_c2w[idx] = c2w
         self.gt_c2w[idx] = gt_c2w_np
         self._sync()
-        self.timers.track.append((idx, time.perf_counter() - t0))
+        self.timers.add_track(idx, time.perf_counter() - t0)
         return c2w
 
     # ------------------------------------------------------------------
@@ -291,14 +435,18 @@ class SlamSystem:
         return masks
 
     def map_frame(self, idx: int, color_np, depth_np, gt_c2w_np, *,
-                  coarse: bool = False, first: bool = False) -> None:
+                  coarse: bool = False, first: bool = False,
+                  frame=None, cur_c2w=None) -> None:
         """One mapping invocation (first-frame, coarse, normal, or the
-        last frame's color refine)."""
+        last frame's color refine).  The mapping thread passes the frame's
+        device tensors and its pose by value (`frame`, `cur_c2w`)."""
         t0 = time.perf_counter()
         mcfg = self.coarse_mcfg if coarse else self.mcfg
         store = self.coarse_keyframes if coarse else self.keyframes
-        color, depth = self._device_frame(idx, color_np, depth_np)
-        cur_c2w = self.estimate_c2w[idx].copy()
+        color, depth = (frame if frame is not None
+                        else self._device_frame(idx, color_np, depth_np))
+        cur_c2w = (self.estimate_c2w[idx].copy() if cur_c2w is None
+                   else cur_c2w.copy())
 
         refine = (idx == self.n_img - 1 and mcfg.color_refine
                   and not coarse and not first)
@@ -364,9 +512,7 @@ class SlamSystem:
                 model=self.model, rcfg=self.rcfg, mcfg=mcfg_eff,
                 intr=self.intr,
                 pix_per_frame=max(mcfg.pixels // n_frames, 1),
-                generator=self.generator)
-            if not coarse:
-                self._tracking_grids = None   # the snapshot is stale
+                generator=self.map_generator)
             if ba:
                 new_cams = c2w_from_tensor_4x4(cams).cpu().numpy()
                 for slot, pos in enumerate(sel):
@@ -391,8 +537,72 @@ class SlamSystem:
             self.mapping_idx = idx
         kind = ('coarse' if coarse else 'first' if first
                 else 'refine' if refine else 'normal')
-        self.timers.maps.append((idx, kind, n_iters * outer_iters,
-                                 time.perf_counter() - t0))
+        self.timers.add_map(idx, kind, n_iters * outer_iters,
+                            time.perf_counter() - t0)
+
+    def _map_round(self, idx: int, color_np, depth_np, gt_c2w_np) -> None:
+        """The mapping of frame idx: [coarse call] + the call (at frame 0
+        the first-frame call, then the coarse one).  Under strict, and with
+        BA active, it commits here, after the queued rounds; otherwise it
+        is queued on the mapping thread."""
+        calls = ([{'first': True}, {'coarse': True, 'first': True}]
+                 if idx == 0 else [{'coarse': True}, {}])
+        calls = [kw for kw in calls
+                 if not kw.get('coarse') or self.coarse_enabled]
+        ba = self.mcfg.ba and self._keyframes_after_rounds() > 4
+        if not self._overlap or ba:
+            self.join_map()
+            self._rounds.clear()
+            for kw in calls:
+                self.map_frame(idx, color_np, depth_np, gt_c2w_np, **kw)
+            self._tracking_grids = None   # the snapshot is stale
+            return
+        frame = self._device_frame(idx, color_np, depth_np)
+        cur_c2w = self.estimate_c2w[idx].copy()
+        if self._map_stream is not None:
+            # the round reads what this stream uploaded; the frame tensors
+            # are used on the mapping stream
+            self._map_stream.wait_stream(
+                torch.cuda.current_stream(self.device))
+            for t in frame:
+                t.record_stream(self._map_stream)
+        if self._map_pool is None:
+            self._map_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix='mapping')
+        self._rounds.append((idx, self._map_pool.submit(
+            self._map_async, idx, color_np, depth_np, gt_c2w_np, calls,
+            frame, cur_c2w)))
+
+    def _keyframes_after_rounds(self) -> int:
+        """Keyframes in the store once the queued rounds are done (BA's
+        activation counts them): a round appends its frame when map_frame's
+        keyframe rule holds for it."""
+        every = self.mcfg.keyframe_every
+        queued = {p for p, _ in self._rounds
+                  if p % every == 0 or p == self.n_img - 2}
+        return len(set(self.keyframes.indices) | queued)
+
+    def _map_async(self, idx, color_np, depth_np, gt_c2w_np, calls, frame,
+                   cur_c2w):
+        """Body of an overlapped mapping round, on the mapping thread:
+        the calls, then the next tracking snapshot; returns it once the
+        mapping stream has finished both."""
+        stream = (torch.cuda.stream(self._map_stream)
+                  if self._map_stream is not None
+                  else contextlib.nullcontext())
+        with stream:
+            for kw in calls:
+                self.map_frame(idx, color_np, depth_np, gt_c2w_np,
+                               frame=frame, cur_c2w=cur_c2w, **kw)
+            snapshot = self._build_snapshot()
+            self._sync()
+        return snapshot
+
+    def join_map(self) -> None:
+        """Wait for the queued mapping rounds, raising the first error.
+        The tracker still adopts the newest snapshot at the next frame."""
+        for _, future in list(self._rounds):
+            future.result()
 
     # ------------------------------------------------------------------
     # services: checkpoint / mesh
@@ -400,9 +610,10 @@ class SlamSystem:
 
     def checkpoint_state(self) -> dict:
         """Everything a resumed run needs (utils/ckpt.py): the map, the
-        poses, both keyframe stores, the schedule position and both
-        random streams."""
-        return {
+        poses, both keyframe stores, the schedule position and the random
+        streams."""
+        self.join_map()
+        state = {
             'grids': {k: g.detach() for k, g in self.grids.items()},
             'decoders': {name: dec.state_dict()
                          for name, dec in self.decoders.items()},
@@ -416,6 +627,9 @@ class SlamSystem:
             'generator_state': self.generator.get_state(),
             'np_rng_state': self.np_rng.bit_generator.state,
         }
+        if self.map_generator is not self.generator:
+            state['map_generator_state'] = self.map_generator.get_state()
+        return state
 
     def save_ckpt(self, idx: int) -> str:
         path = os.path.join(self.output, 'ckpts', f'{idx:05d}.ckpt')
@@ -428,6 +642,8 @@ class SlamSystem:
     def restore(self, state: dict) -> int:
         """Resume from `checkpoint_state()` output (as loaded by
         utils/ckpt.load_checkpoint); returns the next frame to process."""
+        self.join_map()
+        self._rounds.clear()
         with torch.no_grad():
             for name, g in self.grids.items():
                 g.copy_(torch.as_tensor(state['grids'][name]).reshape(
@@ -454,6 +670,10 @@ class SlamSystem:
              for kf in state.get('coarse_keyframes', [])])
         self.mapping_idx = int(state['mapping_idx'])
         self.generator.set_state(torch.as_tensor(state['generator_state']))
+        if 'map_generator_state' in state \
+                and self.map_generator is not self.generator:
+            self.map_generator.set_state(
+                torch.as_tensor(state['map_generator_state']))
         self.np_rng = np.random.default_rng()
         self.np_rng.bit_generator.state = state['np_rng_state']
         return self.mapping_idx + 1
@@ -467,6 +687,7 @@ class SlamSystem:
         if self.mesher is None:
             return None
         self.join_mesh()
+        self.join_map()
         name = 'final_mesh.ply' if final else f'{idx:05d}_mesh.ply'
         path = os.path.join(self.output, 'mesh', name)
         kfs = KeyframeStore([Keyframe(kf.idx, kf.color, kf.depth,
@@ -491,10 +712,9 @@ class SlamSystem:
         t0 = time.perf_counter()
         self.mesher.extract(path, decoders, grids, keyframes, est, idx,
                             **kwargs)
-        seconds = time.perf_counter() - t0
-        self.timers.meshes.append((os.path.basename(path), seconds,
-                                   dict(self.mesher.timings)))
-        self.timers.mesh_s += seconds
+        self.timers.add_mesh(os.path.basename(path),
+                             time.perf_counter() - t0,
+                             dict(self.mesher.timings))
 
     def join_mesh(self) -> None:
         """Wait for the background mesh, if any (its error is raised
@@ -515,6 +735,7 @@ class SlamSystem:
 
     def _assert_invariants(self, idx: int) -> None:
         """Finite map state and a valid pose."""
+        self.join_map()
         for name, g in self.grids.items():
             assert bool(torch.isfinite(g).all()), f'grid {name} non-finite'
         for name, p in self.decoders.named_parameters():
@@ -529,29 +750,30 @@ class SlamSystem:
     # main loop
     # ------------------------------------------------------------------
 
+    @property
+    def map_cadence(self) -> int:
+        """Frames between mapping rounds: `every_frame` under strict; under
+        loose and free every_frame // 2, the reference's effective loose
+        cadence and the closest fixed cadence to its ungated free mapper
+        (the JAX package's `map_cadence`)."""
+        if self.sync_method == 'strict':
+            return self.mcfg.every_frame
+        return max(1, self.mcfg.every_frame // 2)
+
     def step(self, idx: int) -> None:
-        """Process one frame under the strict schedule, then the services
-        of a mapped frame."""
+        """Process one frame under the schedule, then the services of a
+        mapped frame."""
         _, color_np, depth_np, gt_c2w_np = self.frame_reader[idx]
-        every = self.mcfg.every_frame
         last = idx == self.n_img - 1
+        mapped = idx == 0 or idx % self.map_cadence == 0 or last
         if idx == 0:
             self.estimate_c2w[0] = gt_c2w_np
             self.gt_c2w[0] = gt_c2w_np
-            self.track(0, color_np, depth_np, gt_c2w_np)
-            self.map_frame(0, color_np, depth_np, gt_c2w_np, first=True)
-            if self.coarse_enabled:
-                self.map_frame(0, color_np, depth_np, gt_c2w_np,
-                               coarse=True, first=True)
-        else:
-            self.track(idx, color_np, depth_np, gt_c2w_np)
-            if idx % every == 0 or last:
-                if self.coarse_enabled:
-                    self.map_frame(idx, color_np, depth_np, gt_c2w_np,
-                                   coarse=True)
-                self.map_frame(idx, color_np, depth_np, gt_c2w_np)
+        self.track(idx, color_np, depth_np, gt_c2w_np)
+        if mapped:
+            self._map_round(idx, color_np, depth_np, gt_c2w_np)
 
-        if idx == 0 or idx % every == 0 or last:
+        if mapped:
             if ((idx % self.ckpt_freq == 0
                  and not (idx == 0 and self.no_log_first)) or last):
                 self.save_ckpt(idx)
@@ -561,6 +783,7 @@ class SlamSystem:
             if last:
                 self.mesh_now(idx, final=True)
                 if self.eval_rec and self.mesher is not None:
+                    self.join_map()
                     self._extract(
                         os.path.join(self.output, 'mesh',
                                      'final_mesh_eval_rec.ply'),
@@ -576,17 +799,29 @@ class SlamSystem:
             self._frames.pop(idx, None)
 
     def run(self, start: int = 0) -> None:
-        """Frames `start` .. the last; the background mesh is joined and
-        its thread stopped however the loop ends."""
+        """Frames `start` .. the last, read through a Prefetcher
+        (`data.prefetch` frames ahead, `data.prefetch_workers` threads, by
+        default the reader's own `prefetch_workers`).  The mapping round
+        and the background mesh are joined (their errors raised here), and
+        every thread stopped, however the loop ends."""
+        data = self.cfg.get('data', {})
+        reader, self.frame_reader = self.frame_reader, Prefetcher(
+            self.frame_reader, start=start,
+            ahead=int(data.get('prefetch', 2)),
+            workers=int(data.get('prefetch_workers', getattr(
+                self.frame_reader, 'prefetch_workers', 1))))
         try:
             for idx in range(start, self.n_img):
                 self.step(idx)
+            self.join_map()
+            self.join_mesh()
         finally:
-            try:
-                self.join_mesh()
-            finally:
-                if self._mesh_pool is not None:
-                    self._mesh_pool.shutdown()
-                    self._mesh_pool = None
+            for pool in (self._map_pool, self._mesh_pool):
+                if pool is not None:
+                    # after an error, the rounds not yet started are dropped
+                    pool.shutdown(wait=True, cancel_futures=True)
+            self._map_pool = self._mesh_pool = None
+            self.frame_reader.close()
+            self.frame_reader = reader
         if self.verbose:
             print('INFO: run complete:', self.timers.summary())

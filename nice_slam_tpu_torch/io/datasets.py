@@ -25,6 +25,10 @@ class SyntheticBox:
     exit distance and color a smooth function of the hit point, plus a
     fixed per-frame sensor noise."""
 
+    # the analytic rendering is CPU-heavy at full frame size and releases
+    # the interpreter lock: the Prefetcher runs this many frames at once
+    prefetch_workers = 4
+
     def __init__(self, cfg: dict, scale: float = 1.0):
         cam = cfg['cam']
         self.H, self.W = cam['H'], cam['W']

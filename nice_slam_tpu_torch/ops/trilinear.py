@@ -8,9 +8,11 @@ channel-last): a normalized coordinate u in [-1, 1] maps to voxel index
 
 The main path samples `ExpandedGrid`s: `expand_grid` builds E[m] = the 8
 clamped corner rows of voxel m ([M, 8C], ops/expand.py), so a point needs
-one gathered row instead of eight.  Whether the H100 would rather gather the
-8 corners directly is a question for measurements on the card; the layout
-carries over because the parity tests need it.
+one gathered row instead of eight: the row-gather kernel of ops/gather.py,
+whose backward is the scatter-add kernel.  Whether the H100 would rather
+gather the 8 corners directly is a question for measurements on the card
+(chip_smoke.py times both); the layout carries over because the parity
+tests need it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import dataclasses
 import torch
 
 from nice_slam_tpu_torch.ops.expand import ExpandCorners
+from nice_slam_tpu_torch.ops.gather import GatherRows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,12 +86,14 @@ def expand_grid(grid: torch.Tensor, shape: tuple[int, int, int]
 def trilinear_interp_expanded(eg: ExpandedGrid, p_nor: torch.Tensor
                               ) -> torch.Tensor:
     """Interpolate an `ExpandedGrid` at normalized points [N, 3]: one
-    gathered [8C] row per point -> [N, C]."""
+    gathered [8C] row per point -> [N, C].  The gather is the CUDA kernel
+    for a CUDA tensor (backward = the scatter-add kernel), the plain
+    version for a CPU tensor."""
     nx, ny, nz = eg.shape
     c = eg.e.shape[-1] // 8
     i0, frac = _voxel_coords(p_nor, eg.shape)
     m = (i0[:, 0] * ny + i0[:, 1]) * nz + i0[:, 2]
-    rows = eg.e[m].reshape(-1, 2, 2, 2, c)
+    rows = GatherRows.apply(eg.e, m).reshape(-1, 2, 2, 2, c)
     fx = frac[:, 0].reshape(-1, 1, 1, 1, 1)
     fy = frac[:, 1].reshape(-1, 1, 1, 1, 1)
     fz = frac[:, 2].reshape(-1, 1, 1, 1, 1)

@@ -3,7 +3,8 @@ config, several seeds, on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/port_jax_accuracy_bound.py \
         [--config configs/Synthetic/synthetic.yaml] [--seeds 0 1 2] \
-        [--package jax|torch] [--device cpu|cuda] [--recon]
+        [--package jax|torch] [--device cpu|cuda] [--recon] \
+        [--sync strict|loose|free]
 
 Runs the whole sequence through `SlamSystem` of the JAX package (default)
 or of the port (`--package torch`, on `--device`) for each seed and prints
@@ -19,6 +20,10 @@ scored with `calc_3d_metric` (no alignment) against the analytic
 ground-truth mesh of the scene (`synthetic_gt_mesh`), and the summary adds
 the reconstruction bound: 1.5x the worst seed's accuracy and completion
 (cm) and 0.67x the worst completion ratio (%).
+
+--sync sets the config's `sync_method` (default: the config's own).  The
+JAX package then runs on one local device, as the port does: its 'free'
+falls back to 'loose' there, and its two-device pipeline stays off.
 """
 
 from __future__ import annotations
@@ -33,12 +38,15 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run_jax(config: str, seed: int, out: str, recon: bool):
+def run_jax(config: str, sync: str | None, seed: int, out: str,
+            recon: bool):
     import jax
     jax.config.update('jax_platforms', 'cpu')
     from nice_slam_tpu.engine.slam import SlamSystem
     from nice_slam_tpu.utils.config import load_config
     cfg = load_config(config, 'configs/nice_slam.yaml')
+    if sync is not None:
+        cfg['sync_method'] = sync
     cfg['verbose'] = False
     cfg['enable_vis'] = False
     cfg.setdefault('meshing', {})['eval_rec'] = False
@@ -49,10 +57,13 @@ def run_jax(config: str, seed: int, out: str, recon: bool):
     return slam.estimate_c2w, slam.gt_c2w, cfg
 
 
-def run_torch(config: str, seed: int, device: str, out: str, recon: bool):
+def run_torch(config: str, sync: str | None, seed: int, device: str,
+              out: str, recon: bool):
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     from nice_slam_tpu_torch.utils.config import load_config
     cfg = load_config(config, 'configs/nice_slam.yaml')
+    if sync is not None:
+        cfg['sync_method'] = sync
     cfg.setdefault('meshing', {})['eval_rec'] = False
     slam = SlamSystem(cfg, device=device, seed=seed, verbose=False,
                       output=out)
@@ -81,6 +92,8 @@ def main() -> None:
     ap.add_argument('--device', default='cpu')
     ap.add_argument('--recon', action='store_true',
                     help='keep the mesher on and score the final mesh')
+    ap.add_argument('--sync', choices=('strict', 'loose', 'free'),
+                    help="the config's sync_method (default: as loaded)")
     args = ap.parse_args()
 
     import numpy as np
@@ -92,10 +105,11 @@ def main() -> None:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as out:
             if args.package == 'jax':
-                est, gt, cfg = run_jax(args.config, seed, out, args.recon)
+                est, gt, cfg = run_jax(args.config, args.sync, seed, out,
+                                       args.recon)
             else:
-                est, gt, cfg = run_torch(args.config, seed, args.device,
-                                         out, args.recon)
+                est, gt, cfg = run_torch(args.config, args.sync, seed,
+                                         args.device, out, args.recon)
             recon = score_mesh(out, cfg) if args.recon else {}
         err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
         ate = evaluate_ate(est, gt)
@@ -108,7 +122,7 @@ def main() -> None:
     worst_rmse = max(r['ate_rmse_m'] for r in rows)
     worst_max = max(r['max_frame_err_m'] for r in rows)
     summary = {'package': args.package, 'config': args.config,
-               'seeds': args.seeds,
+               'sync_method': args.sync or 'as loaded', 'seeds': args.seeds,
                'worst_ate_rmse_m': worst_rmse,
                'worst_max_frame_err_m': worst_max,
                'bound_ate_rmse_m': 1.5 * worst_rmse,

@@ -15,15 +15,29 @@ The fused MLP sums its layers in another order than cuBLAS and evaluates
 sin of arguments up to ~10^2 rad (here) whose last-bit differences move
 the embedding by ~1e-5: 1e-4 x max(1, max|plain|).  TF32 is off for every
 comparison (the plain version's matmuls would otherwise round to 10 bits).
+The row gather and the roofline probes move data only (bit-exact; `shifts`
+adds two floats per output in the plain version's order); the scatter-add
+sums repeated rows in the order of their positions, its plain version
+(index_add_ on the card) with atomics in an order that changes from run to
+run: 1e-5 x max(1, max|index_add_|).  An index out of range fails a
+device-side assertion in both gather kernels, as in table[idx].
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from nice_slam_tpu_torch.ops import expand as ex
+from nice_slam_tpu_torch.ops import gather as ga
+from nice_slam_tpu_torch.ops import roofline as rf
 from nice_slam_tpu_torch.ops import fused_mlp as fm
 from nice_slam_tpu_torch.ops.trilinear import expand_grid
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -191,3 +205,97 @@ def test_mesher_field_on_the_card_matches_the_cpu(cuda):
     assert launches == 6 * 2 + 3
     for a, b in zip(out['cpu'], out['cuda']):
         assert np.abs(a - b).max() <= 1e-4 * max(1.0, np.abs(a).max())
+
+
+def _rows_and_index(m, w, n, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    table = torch.randn((m, w), generator=gen, device=device)
+    # repeated indices: n draws from m rows, plus one run on row 0
+    idx = torch.randint(0, m, (n,), generator=gen, device=device)
+    idx[: min(n, 64)] = 0
+    return table, idx
+
+
+@pytest.mark.parametrize('m,w,n', [(1, 4, 1), (37, 256, 1023),
+                                   (500, 256, 4097), (300, 512, 1025),
+                                   (22792, 256, 48000),
+                                   (182336, 512, 9600)])
+def test_gather_and_scatter_match_plain(cuda, m, w, n):
+    table, idx = _rows_and_index(m, w, n, cuda)
+    assert torch.equal(ga.gather_rows(table, idx),
+                       ga.gather_rows_plain(table, idx))
+    assert torch.equal(ga.gather_rows(table, idx.int()),
+                       ga.gather_rows_plain(table, idx))
+    grad = torch.randn((n, w), device=cuda)
+    want = ga.scatter_add_rows_plain(grad, idx, m)
+    got = ga.scatter_add_rows(grad, idx, m)
+    torch.testing.assert_close(
+        got, want, rtol=0, atol=1e-5 * max(1.0, float(want.abs().max())))
+    assert torch.equal(got, ga.scatter_add_rows(grad, idx, m))  # no atomics
+
+
+def test_gather_autograd_launches_scatter_only_for_a_gradient(cuda):
+    table, idx = _rows_and_index(120, 64, 500, cuda)
+    ga.reset_launch_counts()
+    with torch.no_grad():
+        ga.GatherRows.apply(table, idx)
+    out = ga.GatherRows.apply(table, idx)      # no input needs a gradient
+    assert out.grad_fn is None
+    assert ga.LAUNCHES == {'gather_rows': 2, 'scatter_add_rows': 0}
+    t = table.clone().requires_grad_()
+    cot = torch.randn((500, 64), device=cuda)
+    g, = torch.autograd.grad(ga.GatherRows.apply(t, idx), t, cot)
+    assert ga.LAUNCHES == {'gather_rows': 3, 'scatter_add_rows': 1}
+    torch.testing.assert_close(g, ga.scatter_add_rows_plain(cot, idx, 120),
+                               rtol=0, atol=1e-4)
+
+
+def test_gather_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    table, idx = _rows_and_index(24, 32, 10, cuda)
+    with pytest.raises(ValueError):
+        ga.gather_rows(table.double(), idx)
+    with pytest.raises(ValueError):
+        ga.gather_rows(torch.randn((24, 6), device=cuda), idx)
+    with pytest.raises(ValueError):
+        ga.gather_rows(torch.randn((32, 24), device=cuda).T, idx)
+    with pytest.raises(ValueError):
+        ga.gather_rows(table, idx.cpu())
+    with pytest.raises(ValueError):
+        ga.scatter_add_rows(torch.randn((10, 6), device=cuda), idx, 24)
+
+
+@pytest.mark.parametrize('op', ['gather_rows', 'scatter_add_rows'])
+def test_gather_kernels_fail_on_an_index_out_of_range(cuda, op):
+    """As table[idx] on the card: a device-side assertion, raised at the
+    next synchronize.  In a child process, because the assertion leaves the
+    CUDA context unusable."""
+    code = (
+        'import torch\n'
+        'from nice_slam_tpu_torch.ops import gather as ga\n'
+        't = torch.zeros((4, 8), device="cuda")\n'
+        'idx = torch.tensor([0, 4], device="cuda")\n'
+        f'ga.{op}(t, idx)\n' if op == 'gather_rows' else
+        'import torch\n'
+        'from nice_slam_tpu_torch.ops import gather as ga\n'
+        'g = torch.zeros((2, 8), device="cuda")\n'
+        'idx = torch.tensor([0, -1], device="cuda")\n'
+        f'ga.{op}(g, idx, 4)\n')
+    code += 'torch.cuda.synchronize()\nprint("no error")\n'
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode != 0, res.stdout
+    assert 'no error' not in res.stdout
+    assert 'assert' in res.stderr.lower(), res.stderr[-2000:]
+
+
+@pytest.mark.parametrize('shape,c', [((1, 1, 1), 4), ((4, 3, 1), 8),
+                                     ((5, 4, 3), 32), ((28, 21, 14), 32),
+                                     ((74, 56, 44), 64)])
+@pytest.mark.parametrize('mode', rf.MODES)
+def test_roofline_probes_match_plain(cuda, mode, shape, c):
+    m = shape[0] * shape[1] * shape[2]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((m, 8 * c if mode == 'copy' else c), generator=gen,
+                    device=cuda)
+    assert torch.equal(rf.probe(mode, x, shape),
+                       rf.probe_plain(mode, x, shape))

@@ -9,6 +9,8 @@ room to spare; gradients get 1e-3 relative (they pass through the same
 layers twice).
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,13 +42,35 @@ def _points(n, seed, lo=-1.1, hi=1.1):
         np.float32)
 
 
+@contextlib.contextmanager
+def _f32_matmuls():
+    """Full-f32 products in both frameworks for the block.  Both settings
+    are process-wide and other test files that share a pytest-xdist worker
+    change them: the JAX SlamSystem sets `jax_default_matmul_precision`
+    from its config, the port's SlamSystem and the CUDA tests set torch's."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision('highest')
+    try:
+        with jax.default_matmul_precision('float32'):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
 def test_embeddings_match():
     p = _points(50, 1)
     b = np.random.default_rng(2).normal(size=(3, 93)).astype(np.float32)
-    np.testing.assert_allclose(
-        np_of(te.fourier_embed(t_of(b), t_of(p))),
-        np_of(je.fourier_embed(jnp.asarray(b), jnp.asarray(p))),
-        atol=1e-5, rtol=1e-5)
+    # sin(p @ B) in float64: each package is held to it at the same
+    # tolerance, so a failure names the side that drifted
+    exact = np.sin(p.astype(np.float64) @ b.astype(np.float64))
+    with _f32_matmuls():
+        got = np_of(te.fourier_embed(t_of(b), t_of(p)))
+        want = np_of(je.fourier_embed(jnp.asarray(b), jnp.asarray(p)))
+    np.testing.assert_allclose(got, exact, atol=1e-5, rtol=1e-5,
+                               err_msg='port vs float64')
+    np.testing.assert_allclose(want, exact, atol=1e-5, rtol=1e-5,
+                               err_msg='JAX package vs float64')
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     for multires, log in ((10, True), (5, False)):
         np.testing.assert_allclose(
             np_of(te.nerf_embed(t_of(p), multires, log)),
