@@ -23,19 +23,26 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                (no single PyTorch call computes it: library_ms is null);
                then the port's model on the card against the port on the CPU
      gather    the row gather (bit-exact against table[idx]) and its
-               scatter-add backward (within 1e-5 x max(1, max|index_add_|))
-               at the shapes of the three gather studies (a width sweep
-               64-2048 over ~60 MB tables with 96K indices; 240K indices in
-               sorted runs of 48 over [59*1024, 256]; 48,000 over
-               [58240, 128]) and at room0's (middle [22792, 256], finecolor
-               [182336, 512]; 48,000 points = one mapping iteration, 9,600 =
-               one tracking iteration; whether the scatter equals
-               index_put_'s bit for bit): times beside the plain version's,
-               index_select's / index_add_'s, index_put_ with accumulate
-               (what autograd of table[idx] pays) and the bytes bound; then
+               scatter-add backward (within 1e-5 x max(1, max|index_add_|),
+               bit-equal to index_put_ with accumulate and between two
+               calls) at the shapes of the three gather studies (a width
+               sweep 64-2048 over ~60 MB tables with 96K indices; 240K
+               indices in sorted runs of 48 over [59*1024, 256]; 48,000
+               over [58240, 128]) and at room0's (middle [22792, 256],
+               finecolor [182336, 512]; 48,000 points = one mapping
+               iteration, 9,600 = one tracking iteration), plus three
+               adversarial indices at the middle mapping shape (every
+               position on one row, none, the index reversed): times beside
+               the plain version's, index_select's / index_add_'s,
+               index_put_ with accumulate (what autograd of table[idx]
+               pays) and the bytes bound, the longest segment, and the
+               device operations one call launches (torch.profiler; the
+               scatter's may hold no sort and no fill); then
                at the finecolor mapping shape one forward+backward of the
                expanded-row path (expand, gather, scatter, fold) against the
-               direct 8-corner gather of the flat grid
+               direct 8-corner gather of the flat grid; and the host time
+               per call of the gather (direct and through GatherRows), the
+               scatter and their library calls at room0's middle table
      roofline  the four streaming probes (copy, widen8, shifts,
                expand_same_x; bit-exact against their plain versions) and
                expand_corners at the study shapes (28x21x14 and 64x48x40,
@@ -61,6 +68,10 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
   6. render    render_image of room0's last frame on the trained state,
                fused decoders against the plain ones (depth within 1e-3 m),
                with times and peak memory
+     gather_real_index  the gather phase's checks and times at room0's
+               middle and fine+color tables on the index of the room0
+               run's last mapping iteration on each (few rows, long
+               segments: the scatter's main-path case)
   7. overlap   sync_method: loose (mapping rounds on their own thread and
                stream, every every_frame // 2 frames): synthetic.yaml, 40
                frames, ATE RMSE and largest per-frame error held to 1.5x
@@ -73,7 +84,7 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                in both
 Then the kernel table line {"kernels": [...]} (one entry per TPU kernel of
 the repository; launches from phase 5, the probes' from the roofline
-phase), the card line, and last {"ok": true, "device": {...}}.  Any
+phase; the scatter's times from the real-index case), the card line, and last {"ok": true, "device": {...}}.  Any
 failure exits non-zero without the last line.  Without CUDA it exits 2 at
 once.
 """
@@ -147,6 +158,12 @@ GATHER_SWEEP_WIDTHS = (64, 128, 256, 512, 1024, 1536, 2048)
 GATHER_SWEEP_N = 96 * 1024
 MAP_POINTS = 1000 * 48         # one mapping iteration: 1000 px x 48 samples
 TRACK_POINTS = 200 * 48        # one tracking iteration: 200 px x 48
+# 'mapping_real': the index of the room0 run's last mapping iteration on
+# that table (phase_real_index); the others draw ray walks
+ROOM0_GATHER_CASES = tuple(f'room0_{vol}_{call}'
+                           for vol in ('middle', 'finecolor')
+                           for call in ('mapping', 'mapping_real',
+                                        'tracking'))
 ROOFLINE_SHAPES = {'study_default': ((28, 21, 14), 32),
                    'study_variants': ((64, 48, 40), 32),
                    'room0_finecolor': ((74, 56, 44), 64)}
@@ -402,9 +419,38 @@ def ray_walk_index(n: int, rows: int, gen):
     return (base + walk).reshape(-1)
 
 
+def device_ops(fn) -> list:
+    """[name, device us] of each device operation (kernel, memset, copy)
+    that one call of fn launches, traced by torch.profiler on the card
+    after a warm-up call.  A trace that caught no device operation is
+    taken again, twice at most (a call may launch none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [[e.name, e.time_range.elapsed_us()]
+               for e in prof.events() if e.device_type.name == 'CUDA']
+        if ops:
+            break
+    return ops
+
+
+def short_name(kernel: str) -> str:
+    """A device operation's name without its namespaces, template and
+    function arguments."""
+    return (kernel.replace('(anonymous namespace)::', '')
+            .removeprefix('void ').split('(')[0].split('<')[0]
+            .split('::')[-1])
+
+
 def gather_case(name, table, idx, gen) -> dict:
     """The gather and scatter kernels against their plain versions at one
-    shape, with times and bounds."""
+    shape, with times, bounds and the device operations of one call."""
     import torch
     from nice_slam_tpu_torch.ops import gather as ga
     m, w = table.shape
@@ -413,25 +459,50 @@ def gather_case(name, table, idx, gen) -> dict:
     got, plain = ga.gather_rows(table, idx), ga.gather_rows_plain(table, idx)
     if not torch.equal(got, plain):
         raise AssertionError(f'gather_rows != table[idx] at {name}')
-    gather_err = float((got - plain).abs().max())
+    gather_err = float((got - plain).abs().max()) if n else 0.0
     del got, plain
     want = ga.scatter_add_rows_plain(grad, idx, m)
-    err = float((ga.scatter_add_rows(grad, idx, m) - want).abs().max())
+    got = ga.scatter_add_rows(grad, idx, m)
+    err = float((got - want).abs().max())
     if not err <= SCATTER_TOL * max(1.0, float(want.abs().max())):
         raise AssertionError(f'scatter_add_rows off by {err} at {name}')
     # autograd's backward of table[idx]: PyTorch's sort-based index_put_
-    # with accumulate, whose summation order the kernel keeps
+    # with accumulate, whose summation order the kernel keeps bit for bit
     put = torch.zeros((m, w), device='cuda').index_put_((idx,), grad,
                                                         accumulate=True)
+    if not torch.equal(got, put):
+        raise AssertionError(f'scatter_add_rows != index_put_ accumulate at '
+                             f'{name}')
+    if not torch.equal(got, ga.scatter_add_rows(grad, idx, m)):
+        raise AssertionError(f'scatter_add_rows differs between two calls '
+                             f'at {name}')
+    del got, want, put
+    ops = {
+        'gather_rows': device_ops(lambda: ga.gather_rows(table, idx)),
+        'index_select': device_ops(lambda: table.index_select(0, idx)),
+        'scatter_add_rows': device_ops(lambda: ga.scatter_add_rows(
+            grad, idx, m)),
+        'index_add_': device_ops(lambda: ga.scatter_add_rows_plain(
+            grad, idx, m)),
+        'index_put_accumulate': device_ops(lambda: torch.zeros(
+            (m, w), device='cuda').index_put_((idx,), grad,
+                                              accumulate=True))}
+    if any('sort' in o.lower() or 'fill' in o.lower()
+           for o, _ in ops['scatter_add_rows']):
+        raise AssertionError(f'scatter_add_rows sorts or fills at {name}: '
+                             f'{ops["scatter_add_rows"]}')
     # bytes each function must move: the forward reads the rows this
     # index touches (each once) and the index, and writes [n, w]; the
     # backward reads the gradient and the index and writes [m, w]
     distinct = int(torch.unique(idx).numel())
-    fwd_bytes = distinct * w * 4 + n * 8 + n * w * 4
-    bwd_bytes = n * w * 4 + n * 8 + m * w * 4
+    isize = idx.element_size()
+    fwd_bytes = distinct * w * 4 + n * isize + n * w * 4
+    bwd_bytes = n * w * 4 + n * isize + m * w * 4
     return {
         'case': name, 'rows': m, 'width': w, 'n': n,
         'distinct_rows': distinct,
+        'longest_segment': (int(torch.bincount(idx, minlength=m).max())
+                            if n else 0),
         'gather_ms': cuda_ms(lambda: ga.gather_rows(table, idx)),
         'gather_plain_ms': cuda_ms(lambda: ga.gather_rows_plain(table,
                                                                  idx)),
@@ -447,8 +518,9 @@ def gather_case(name, table, idx, gen) -> dict:
         'scatter_bound_ms': bwd_bytes / HBM_BYTES_PER_S * 1e3,
         'gather_max_abs_err': gather_err,
         'scatter_max_abs_err': err,
-        'scatter_bit_equal_to_index_put': bool(torch.equal(
-            ga.scatter_add_rows(grad, idx, m), put)),
+        'device_ops_per_call': {k: len(v) for k, v in ops.items()},
+        'scatter_device_ops': [[short_name(o), us]
+                               for o, us in ops['scatter_add_rows']],
     }
 
 
@@ -496,6 +568,49 @@ def expanded_vs_direct(gen) -> dict:
             'expanded_fwd_ms': fwd_e, 'direct_fwd_ms': fwd_d}
 
 
+def host_us(fn, calls: int = 200, runs: int = 7) -> float:
+    """Host microseconds per call: the median of `runs` runs of `calls`
+    back-to-back calls, the device drained before each run."""
+    import torch
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def host_costs(gen) -> dict:
+    """Host time per call of the row wrappers and their library calls at
+    room0's middle table: a tracking iteration's rows for the gather, both
+    as the tracker calls it (the snapshot needs no gradient: gather_rows
+    directly) and through GatherRows.apply; a mapping iteration's for the
+    scatter.  A call's host time bounds its time on the card from below
+    when calls go back to back."""
+    import torch
+    from nice_slam_tpu_torch.ops import gather as ga
+    shape, c = MAIN_SHAPES['middle']
+    m, w = shape[0] * shape[1] * shape[2], 8 * c
+    table = torch.randn((m, w), generator=gen, device='cuda')
+    track = torch.randint(0, m, (TRACK_POINTS,), generator=gen, device='cuda')
+    mapping = torch.randint(0, m, (MAP_POINTS,), generator=gen, device='cuda')
+    grad = torch.randn((MAP_POINTS, w), generator=gen, device='cuda')
+    return {
+        'gather_rows': host_us(lambda: ga.gather_rows(table, track)),
+        'GatherRows.apply': host_us(lambda: ga.GatherRows.apply(table,
+                                                                track)),
+        'index_select': host_us(lambda: table.index_select(0, track)),
+        'scatter_add_rows': host_us(lambda: ga.scatter_add_rows(
+            grad, mapping, m)),
+        'index_add_ into zeros': host_us(lambda: ga.scatter_add_rows_plain(
+            grad, mapping, m))}
+
+
 def phase_gather() -> dict:
     import torch
     gen = torch.Generator(device='cuda').manual_seed(5)
@@ -517,15 +632,46 @@ def phase_gather() -> dict:
         rows = shape[0] * shape[1] * shape[2]
         table = torch.randn((rows, 8 * c), generator=gen, device='cuda')
         for call, n in (('mapping', MAP_POINTS), ('tracking', TRACK_POINTS)):
-            cases.append(gather_case(f'room0_{vol}_{call}', table,
-                                     ray_walk_index(n, rows, gen), gen))
+            idx = ray_walk_index(n, rows, gen)
+            cases.append(gather_case(f'room0_{vol}_{call}', table, idx, gen))
+        if vol == 'middle':
+            # adversarial: every position on one row, no positions, and
+            # the mapping index reversed (each segment placed descending)
+            idx = ray_walk_index(MAP_POINTS, rows, gen)
+            for case, bad in (('one_row', torch.full_like(idx, rows // 2)),
+                              ('n0', idx[:0]), ('reversed', idx.flip(0))):
+                cases.append(gather_case(f'room0_middle_mapping_{case}',
+                                         table, bad, gen))
         del table
     res = {'phase': 'gather', 'cases': cases,
            'tolerance': {'gather_rows': 0.0,
                          'scatter_add_rows':
                              f'{SCATTER_TOL} x max(1, max|index_add_|)'},
-           'expanded_vs_direct': expanded_vs_direct(gen)}
+           'expanded_vs_direct': expanded_vs_direct(gen),
+           'host_us_per_call': host_costs(gen)}
     emit(res)
+    return {c['case']: c for c in cases}
+
+
+def phase_real_index(real: dict) -> dict:
+    """The gather and scatter at room0's middle and fine+color tables on
+    the index of the room0 run's last mapping iteration on each (kept by
+    phase_room0): the distribution the main path gives the scatter, whose
+    longest segments the ray walks of phase_gather do not have."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    cases = []
+    for vol in ('middle', 'finecolor'):
+        shape, c = MAIN_SHAPES[vol]
+        rows = shape[0] * shape[1] * shape[2]
+        if rows not in real:
+            raise AssertionError(f'room0 made no scatter call on its {vol} '
+                                 f'table')
+        table = torch.randn((rows, 8 * c), generator=gen, device='cuda')
+        cases.append(gather_case(f'room0_{vol}_mapping_real', table,
+                                 real[rows], gen))
+        del table
+    emit({'phase': 'gather_real_index', 'cases': cases})
     return {c['case']: c for c in cases}
 
 
@@ -763,8 +909,23 @@ def room0_cfg() -> dict:
 
 
 def phase_room0(out: str):
+    """The room0 run; returns its result, the system and, per table rows,
+    the index of the last scatter call on that table (the wrapper is
+    wrapped to keep it and still counts its own launches)."""
+    from nice_slam_tpu_torch.ops import gather as ga
     cfg = room0_cfg()
-    res, slam = run_slam(cfg, out)
+    real = {}
+    scatter = ga.scatter_add_rows
+
+    def keeping(grad, idx, m):
+        real[m] = idx
+        return scatter(grad, idx, m)
+
+    ga.scatter_add_rows = keeping
+    try:
+        res, slam = run_slam(cfg, out)
+    finally:
+        ga.scatter_add_rows = scatter
     mesh_dir = os.path.join(out, 'mesh')
     res['mesh_vertices'] = {
         f: mesh_vertices(os.path.join(mesh_dir, f))
@@ -782,7 +943,7 @@ def phase_room0(out: str):
         raise AssertionError(f'fused_mlp launched '
                              f'{res["launches"]["fused_mlp"]} times, the '
                              f'mesh schedule says {want}')
-    return res, slam
+    return res, slam, real
 
 
 def phase_render(slam) -> None:
@@ -916,6 +1077,10 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
                       times['bytes_bound_ms'], times['fold_library_ms'], fc,
                       measured_bound_ms=fc_bytes / stream * 1e3)
 
+    def room0_cases(keys):
+        return {case: {k: gather[case][k] for k in keys}
+                for case in ROOM0_GATHER_CASES if case in gather}
+
     def gather_row(row, replaces, case):
         c = gather[case]
         return _entry(row, 'gather_rows', 'gather.cu', replaces,
@@ -925,7 +1090,33 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
                       c['gather_library_ms'],
                       f'{case}: [{c["rows"]}, {c["width"]}], {c["n"]} rows',
                       measured_bound_ms=c['gather_bound_ms']
-                      * HBM_BYTES_PER_S / stream)
+                      * HBM_BYTES_PER_S / stream,
+                      room0=room0_cases(('gather_ms', 'gather_plain_ms',
+                                         'gather_library_ms',
+                                         'gather_bound_ms')))
+
+    def scatter_row(case):
+        c = gather[case]
+        # the faster of the two one-call libraries
+        lib = min(('index_add_', c['scatter_plain_ms']),
+                  ('index_put_ accumulate', c['index_put_accumulate_ms']),
+                  key=lambda x: x[1])
+        return _entry('6-8 backward', 'scatter_add_rows', 'gather.cu',
+                      'nice_slam_tpu/ops/trilinear.py:193 (XLA transpose of '
+                      'the row gather; no Pallas kernel)',
+                      lau['scatter_add_rows'], c['scatter_max_abs_err'],
+                      c['scatter_ms'], c['scatter_plain_ms'],
+                      c['scatter_bound_ms'], lib[1],
+                      f'{case}: [{c["rows"]}, {c["width"]}], {c["n"]} rows '
+                      f'on {c["distinct_rows"]}, longest segment '
+                      f'{c["longest_segment"]}',
+                      measured_bound_ms=c['scatter_bound_ms']
+                      * HBM_BYTES_PER_S / stream,
+                      library_call=lib[0],
+                      index_put_accumulate_ms=c['index_put_accumulate_ms'],
+                      room0=room0_cases(('scatter_ms', 'scatter_plain_ms',
+                                         'index_put_accumulate_ms',
+                                         'scatter_bound_ms')))
 
     def probe_row(row, mode, replaces, shape_name='study_variants'):
         r = next(r for r in roof['rows'] if r['probe'] == mode
@@ -941,7 +1132,6 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
                       f'{shape_name} {r["shape"]} C{r["c"]}',
                       measured_bound_ms=r['bytes'] / stream * 1e3)
 
-    mc = gather['room0_finecolor_mapping']
     return [
         expand_row(1, pal + 'expand.py:390'),
         expand_row(2, pal + 'expand.py:319'),
@@ -955,17 +1145,8 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
         gather_row(6, stud + 'proto_gather_sweep.py:57', 'sweep_w1024'),
         gather_row(7, stud + 'proto_pallas_gather.py:42', 'runs48'),
         gather_row(8, stud + 'proto_gather_paths.py:95', 'paths'),
-        _entry('6-8 backward', 'scatter_add_rows', 'gather.cu',
-               'nice_slam_tpu/ops/trilinear.py:193 (XLA transpose of the '
-               'row gather; no Pallas kernel)', lau['scatter_add_rows'],
-               mc['scatter_max_abs_err'], mc['scatter_ms'],
-               mc['scatter_plain_ms'], mc['scatter_bound_ms'],
-               mc['scatter_plain_ms'],
-               f'room0 finecolor mapping: [{mc["rows"]}, {mc["width"]}], '
-               f'{mc["n"]} rows',
-               measured_bound_ms=mc['scatter_bound_ms'] * HBM_BYTES_PER_S
-               / stream,
-               index_put_accumulate_ms=mc['index_put_accumulate_ms']),
+        # the main path's index, on the table where it costs the most
+        scatter_row('room0_middle_mapping_real'),
         probe_row(9, 'copy', stud + 'proto_expand_roofline.py:87',
                   'study_default'),
         probe_row('10 concat8', 'widen8',
@@ -1018,11 +1199,14 @@ def main() -> int:
         phase_accuracy()
         lap('accuracy')
         with tempfile.TemporaryDirectory() as out:
-            room0, slam = phase_room0(out)
+            room0, slam, real = phase_room0(out)
             lap('room0')
             phase_render(slam)
         del slam
         lap('render')
+        gather.update(phase_real_index(real))
+        del real
+        lap('real_index')
         phase_overlap(room0)
         lap('overlap')
         if any(k in sys.modules for k in ('jax', 'nice_slam_tpu')):

@@ -5,7 +5,8 @@ geometry library (`csrc/geometry.cpp`) with g++; each becomes a shared
 library with a plain C interface that its Python module loads with
 ctypes.  A library is built at first use and rebuilt when its source is
 newer.  Each build writes a temporary file and renames it into place, so
-concurrent processes never load a partial library.
+concurrent processes never load a partial library.  `launch` is the one
+call path of every kernel wrapper into its library.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, 'csrc')
@@ -57,3 +60,25 @@ def compile_cpp(source: str, library: str) -> str:
 def is_stale(source: str, library: str) -> bool:
     return (not os.path.exists(library)
             or os.path.getmtime(library) < os.path.getmtime(source))
+
+
+def launch(fn, *args, device: int) -> None:
+    """Call a kernel's C entry point on the current stream of CUDA device
+    `device` (an index, `tensor.get_device()`).
+
+    `args` are the entry point's arguments before its trailing stream:
+    data pointers as Python ints (`tensor.data_ptr()`), which ctypes
+    converts under the function's `c_void_p` argtypes, and sizes.  The
+    stream is read once per call, as the raw handle that
+    `torch.cuda.current_stream().cuda_stream` gives, without building a
+    `Stream` object; `torch.cuda.device` is entered only when `device` is
+    not the current device.  Raises if the C function returns a CUDA error
+    (it returns `cudaGetLastError()` after its launches)."""
+    if device == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    if err != 0:
+        raise RuntimeError(f'{fn.__name__}: CUDA launch failed with error '
+                           f'{err}')

@@ -27,7 +27,7 @@ import os
 import torch
 
 from nice_slam_tpu_torch.ops.build import (
-    BUILD_DIR, CSRC, compile_cuda, is_stale)
+    BUILD_DIR, CSRC, compile_cuda, is_stale, launch)
 
 SOURCE = os.path.join(CSRC, 'expand.cu')
 LIBRARY = os.path.join(BUILD_DIR, 'libnst_expand.so')
@@ -78,14 +78,8 @@ def _check_cuda_f32(x: torch.Tensor, name: str, rows: int, width: int
 
 def _launch(fn, src: torch.Tensor, dst: torch.Tensor, shape, c: int) -> None:
     nx, ny, nz = shape
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(ctypes.c_void_p(src.data_ptr()),
-                 ctypes.c_void_p(dst.data_ptr()), nx, ny, nz, c,
-                 ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f'{fn.__name__}: CUDA launch failed with '
-                           f'error {err}')
+    launch(fn, src.data_ptr(), dst.data_ptr(), nx, ny, nz, c,
+           device=src.get_device())
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ import torch
 from torch.nn import functional as F
 
 from nice_slam_tpu_torch.ops.build import (
-    BUILD_DIR, CSRC, compile_cuda, is_stale)
+    BUILD_DIR, CSRC, compile_cuda, is_stale, launch)
 
 SOURCE = os.path.join(CSRC, 'fused_mlp.cu')
 LIBRARY = os.path.join(BUILD_DIR, 'libnst_fused_mlp.so')
@@ -207,15 +207,8 @@ def fused_mlp_forward(p: torch.Tensor, c: torch.Tensor, params, *,
                            "kernel's layout")
     out = torch.empty((n, out_dim) if color else (n,), dtype=torch.float32,
                       device=p.device)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = lib.nst_fused_mlp(
-            ctypes.c_void_p(p.data_ptr()), ctypes.c_void_p(c.data_ptr()),
-            ctypes.c_void_p(packed.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), n, c_dim, out_dim,
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f'fused_mlp: CUDA launch failed with error {err}')
+    launch(lib.nst_fused_mlp, p.data_ptr(), c.data_ptr(), packed.data_ptr(),
+           out.data_ptr(), n, c_dim, out_dim, device=p.get_device())
     LAUNCHES['fused_mlp'] += 1
     return out
 

@@ -33,7 +33,7 @@ import os
 import torch
 
 from nice_slam_tpu_torch.ops.build import (
-    BUILD_DIR, CSRC, compile_cuda, is_stale)
+    BUILD_DIR, CSRC, compile_cuda, is_stale, launch)
 
 SOURCE = os.path.join(CSRC, 'roofline.cu')
 LIBRARY = os.path.join(BUILD_DIR, 'libnst_roofline.so')
@@ -172,15 +172,8 @@ def probe(mode: str, x: torch.Tensor,
             raise ValueError(f'probe: {rows} rows for shape {shape}')
     width = 8 * c if mode in ('widen8', 'expand_same_x') else c
     out = torch.empty((rows, width), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().nst_roofline_probe(
-            MODES.index(mode), ctypes.c_void_p(x.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), rows, ny, nz, c,
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f'roofline probe {mode}: CUDA launch failed with '
-                           f'error {err}')
+    launch(_library().nst_roofline_probe, MODES.index(mode), x.data_ptr(),
+           out.data_ptr(), rows, ny, nz, c, device=x.get_device())
     LAUNCHES[f'roofline_{mode}'] += 1
     return out
 

@@ -22,7 +22,7 @@ import dataclasses
 import torch
 
 from nice_slam_tpu_torch.ops.expand import ExpandCorners
-from nice_slam_tpu_torch.ops.gather import GatherRows
+from nice_slam_tpu_torch.ops.gather import GatherRows, gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +93,11 @@ def trilinear_interp_expanded(eg: ExpandedGrid, p_nor: torch.Tensor
     c = eg.e.shape[-1] // 8
     i0, frac = _voxel_coords(p_nor, eg.shape)
     m = (i0[:, 0] * ny + i0[:, 1]) * nz + i0[:, 2]
-    rows = GatherRows.apply(eg.e, m).reshape(-1, 2, 2, 2, c)
+    if torch.is_grad_enabled() and eg.e.requires_grad:
+        rows = GatherRows.apply(eg.e, m)
+    else:   # no gradient to the table (the tracker's snapshot): no node
+        rows = gather_rows(eg.e, m)
+    rows = rows.reshape(-1, 2, 2, 2, c)
     fx = frac[:, 0].reshape(-1, 1, 1, 1, 1)
     fy = frac[:, 1].reshape(-1, 1, 1, 1, 1)
     fz = frac[:, 2].reshape(-1, 1, 1, 1, 1)

@@ -11,7 +11,11 @@ on how well the first map fit).  Profiled: tracking frame 1 (10 iterations)
 and one normal mapping call at frame 1 (60 iterations), each after one
 warm-up call of the same kind.  Prints one JSON line: wall time of each
 profiled call, the device-busy share (union of kernel intervals over the
-wall time), the kernel count, and the top operations by device time;
+wall time), the kernel count, the top operations by device time and the
+row kernels' launches; then, from one more mapping call outside the
+profiler, the index distribution the scatter kernel sees (per table: calls,
+points, distinct rows, longest segment) and the scatter's time on the last
+index of each table beside index_add_ and index_put_ with accumulate;
 writes the key_averages tables under --out.
 """
 
@@ -53,6 +57,7 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from nice_slam_tpu_torch.engine.slam import SlamSystem
+    from nice_slam_tpu_torch.ops import gather as ga
     from nice_slam_tpu_torch.utils.config import load_config
 
     if not torch.cuda.is_available():
@@ -80,6 +85,7 @@ def main() -> None:
     for name, fn in (('track_frame', track), ('map_call', map_call)):
         fn()                                   # warm-up
         torch.cuda.synchronize()
+        ga.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -92,12 +98,65 @@ def main() -> None:
                      key=lambda e: -e.device_time_total)[:12]
         out[name] = {
             'wall_ms': wall * 1e3, 'device_busy_share': share,
-            'kernels': n_kernels,
+            'device_busy_ms': share * wall * 1e3,
+            'kernels': n_kernels, 'row_kernel_launches': dict(ga.LAUNCHES),
             'top_device_ms': [[e.key[:60], e.device_time_total / 1e3,
                                e.count] for e in top]}
         with open(os.path.join(args.out, f'{name}.txt'), 'w') as f:
             f.write(avg.table(sort_by='device_time_total', row_limit=40))
+    out['scatter_index'] = index_distribution(ga, map_call)
     print(json.dumps(out))
+
+
+def index_distribution(ga, map_call) -> dict:
+    """Run map_call with the scatter wrapper recording, per call, the
+    table's rows, the points, the distinct rows hit and the longest
+    segment (the most points on one row); summarized per table shape.
+    Then, on the last index of each table and a random gradient, the
+    scatter's time (CUDA events) beside index_add_ into zeros and
+    index_put_ with accumulate, and whether it equals the latter's bits."""
+    import statistics
+    import torch
+    from chip_smoke import cuda_ms
+    seen, last = {}, {}
+    scatter = ga.scatter_add_rows
+
+    def recording(grad, idx, m):
+        seg = torch.bincount(idx, minlength=m)
+        key = f'[{m}, {grad.shape[1]}]'
+        seen.setdefault(key, []).append(
+            (idx.shape[0], int((seg > 0).sum()), int(seg.max())))
+        last[key] = (m, grad.shape[1], idx)
+        return scatter(grad, idx, m)
+
+    ga.scatter_add_rows = recording
+    try:
+        map_call()
+        torch.cuda.synchronize()
+    finally:
+        ga.scatter_add_rows = scatter
+    out = {}
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    for table, v in seen.items():
+        m, w, idx = last[table]
+        grad = torch.randn((idx.shape[0], w), generator=gen, device='cuda')
+        put = torch.zeros((m, w), device='cuda').index_put_(
+            (idx,), grad, accumulate=True)
+        out[table] = {
+            'calls': len(v), 'points': sorted({n for n, _, _ in v}),
+            'distinct_rows_median': statistics.median(d for _, d, _ in v),
+            'longest_segment_median': statistics.median(s for _, _, s in v),
+            'longest_segment_max': max(s for _, _, s in v),
+            'last_index_scatter_ms': cuda_ms(
+                lambda: ga.scatter_add_rows(grad, idx, m)),
+            'last_index_index_add_ms': cuda_ms(
+                lambda: ga.scatter_add_rows_plain(grad, idx, m)),
+            'last_index_index_put_accumulate_ms': cuda_ms(
+                lambda: torch.zeros((m, w), device='cuda').index_put_(
+                    (idx,), grad, accumulate=True)),
+            'last_index_bit_equal_index_put': bool(torch.equal(
+                ga.scatter_add_rows(grad, idx, m), put))}
+    return out
 
 
 if __name__ == '__main__':

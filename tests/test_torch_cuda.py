@@ -19,8 +19,9 @@ The row gather and the roofline probes move data only (bit-exact; `shifts`
 adds two floats per output in the plain version's order); the scatter-add
 sums repeated rows in the order of their positions, its plain version
 (index_add_ on the card) with atomics in an order that changes from run to
-run: 1e-5 x max(1, max|index_add_|).  An index out of range fails a
-device-side assertion in both gather kernels, as in table[idx].
+run: 1e-5 x max(1, max|index_add_|); against index_put_ with accumulate,
+which sums in the kernel's order, it is bit-equal.  An index out of range
+fails a device-side assertion in both gather kernels, as in table[idx].
 """
 
 import os
@@ -207,21 +208,47 @@ def test_mesher_field_on_the_card_matches_the_cpu(cuda):
         assert np.abs(a - b).max() <= 1e-4 * max(1.0, np.abs(a).max())
 
 
-def _rows_and_index(m, w, n, device, seed=0):
+def _rows_and_index(m, w, n, device, seed=0, kind='runs'):
+    """kind 'runs': n draws from m rows plus one run of 64 on row 0 (a
+    segment a block orders in shared memory); 'one_row': every position on
+    row 0; 'every_third': every third position on row 7 (a segment spread
+    over all positions; at 300,000 its range takes more than one window of
+    the bitmap that orders it); 'clustered':
+    n draws from 1,150 of the rows, row k of them weighted 1 / (k + 5)
+    (the shape of a room0 mapping index: segments up to ~1,800 positions);
+    'long_rows': every fifth position on row 3 and every seventh on row 11
+    (two long segments, each summed by several column slices)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     table = torch.randn((m, w), generator=gen, device=device)
-    # repeated indices: n draws from m rows, plus one run on row 0
     idx = torch.randint(0, m, (n,), generator=gen, device=device)
-    idx[: min(n, 64)] = 0
+    if kind == 'runs':
+        idx[: min(n, 64)] = 0
+    elif kind == 'one_row':
+        idx[:] = 0
+    elif kind == 'every_third':
+        idx[::3] = 7
+    elif kind == 'clustered':
+        rows = torch.randperm(m, generator=gen, device=device)[:1150]
+        weight = 1.0 / (torch.arange(1150, device=device) + 5.0)
+        idx = rows[torch.multinomial(weight, n, replacement=True,
+                                     generator=gen)]
+    else:
+        idx[::5] = 3
+        idx[1::7] = 11
     return table, idx
 
 
-@pytest.mark.parametrize('m,w,n', [(1, 4, 1), (37, 256, 1023),
-                                   (500, 256, 4097), (300, 512, 1025),
-                                   (22792, 256, 48000),
-                                   (182336, 512, 9600)])
-def test_gather_and_scatter_match_plain(cuda, m, w, n):
-    table, idx = _rows_and_index(m, w, n, cuda)
+@pytest.mark.parametrize('m,w,n,kind', [
+    (1, 4, 1, 'runs'), (37, 4, 1023, 'runs'), (37, 256, 1023, 'runs'),
+    (500, 256, 4097, 'runs'), (300, 512, 1025, 'runs'),
+    (64, 2048, 3000, 'runs'), (22792, 256, 48000, 'runs'),
+    (182336, 512, 9600, 'runs'), (22792, 256, 48000, 'one_row'),
+    (5000, 64, 30000, 'every_third'), (5000, 64, 300000, 'every_third'),
+    (300, 512, 0, 'runs'),
+    (22792, 256, 48000, 'clustered'), (182336, 512, 48000, 'clustered'),
+    (4096, 1024, 40000, 'long_rows'), (64, 4, 5000, 'long_rows')])
+def test_gather_and_scatter_match_plain(cuda, m, w, n, kind):
+    table, idx = _rows_and_index(m, w, n, cuda, kind=kind)
     assert torch.equal(ga.gather_rows(table, idx),
                        ga.gather_rows_plain(table, idx))
     assert torch.equal(ga.gather_rows(table, idx.int()),
@@ -231,7 +258,13 @@ def test_gather_and_scatter_match_plain(cuda, m, w, n):
     got = ga.scatter_add_rows(grad, idx, m)
     torch.testing.assert_close(
         got, want, rtol=0, atol=1e-5 * max(1.0, float(want.abs().max())))
-    assert torch.equal(got, ga.scatter_add_rows(grad, idx, m))  # no atomics
+    # the order of autograd's backward of table[idx] on the card, bit for bit
+    put = torch.zeros((m, w), device=cuda).index_put_((idx,), grad,
+                                                      accumulate=True)
+    assert torch.equal(got, put)
+    for _ in range(4):      # the same bits on every call: no race, no atomics
+        assert torch.equal(got, ga.scatter_add_rows(grad, idx, m))
+    assert torch.equal(got, ga.scatter_add_rows(grad, idx.int(), m))
 
 
 def test_gather_autograd_launches_scatter_only_for_a_gradient(cuda):

@@ -47,8 +47,10 @@ def _table_idx(m, w, n, seed, repeats=False):
     return table, idx.astype(np.int32)
 
 
+# the last two: one row hit by 2,000 positions, and no positions at all
 CASES = [(37, 256, 1, False), (37, 256, 1023, True), (500, 256, 4097, True),
-         (64, 512, 257, False), (300, 512, 1025, True), (1, 512, 33, True)]
+         (64, 512, 257, False), (300, 512, 1025, True), (1, 512, 33, True),
+         (1, 256, 2000, False), (37, 256, 0, False)]
 
 
 @pytest.mark.parametrize('m,w,n,repeats', CASES)
@@ -73,6 +75,7 @@ def test_scatter_add_plain_equals_jax_transpose(m, w, n, repeats):
     tol = SCATTER_TOL * max(1.0, float(np.abs(want).max()))
     ti = torch.as_tensor(idx, dtype=torch.long)
     for got in (tg.scatter_add_rows_plain(t_of(grad), ti, m),
+                tg.scatter_add_rows_ordered_plain(t_of(grad), ti, m),
                 tg.scatter_add_rows(t_of(grad), ti, m)):
         np.testing.assert_allclose(np_of(got), want, rtol=0, atol=tol)
     # autograd of GatherRows reaches the same transpose
@@ -117,6 +120,21 @@ def test_interp_and_grad_through_gather_match_jax(shape, c):
     assert t_grad.shape == tgrid.shape
 
 
+@pytest.mark.parametrize('m,w,n,repeats', CASES)
+def test_ordered_scatter_plain_is_index_add_bit_for_bit(m, w, n, repeats):
+    """The kernel's order (each target row summed from 0 over its positions
+    in ascending order) gives index_add_'s bits on the CPU, int32 and int64
+    indices alike."""
+    _, idx = _table_idx(m, w, n, 5, repeats)
+    grad = t_of(np.random.default_rng(6).normal(size=(n, w))
+                .astype(np.float32))
+    want = tg.scatter_add_rows_plain(
+        grad, torch.as_tensor(idx, dtype=torch.long), m)
+    for ti in (torch.as_tensor(idx), torch.as_tensor(idx, dtype=torch.long)):
+        assert torch.equal(tg.scatter_add_rows_ordered_plain(grad, ti, m),
+                           want)
+
+
 def _graph_nodes(t):
     seen, todo = set(), [t.grad_fn]
     while todo:
@@ -159,3 +177,39 @@ def test_tracker_snapshot_path_launches_no_scatter(monkeypatch):
     assert 'GatherRowsBackward' in _graph_nodes(out.sum())
     torch.autograd.grad(out.sum(), grid)
     assert calls == [m]
+
+
+def test_direct_gather_when_the_table_needs_no_gradient(monkeypatch):
+    """A table that needs no gradient (a detached snapshot, or any table
+    under no_grad) is gathered by gather_rows directly: same output and
+    pose gradient as through GatherRows, and no GatherRowsBackward node."""
+    direct = []
+    plain = ttri.gather_rows
+
+    def counting(table, idx):
+        direct.append(idx.shape[0])
+        return plain(table, idx)
+
+    monkeypatch.setattr(ttri, 'gather_rows', counting)
+    shape, c = (6, 5, 4), 8
+    m = shape[0] * shape[1] * shape[2]
+    grid = torch.randn((m, c), generator=torch.Generator().manual_seed(2),
+                       requires_grad=True)
+    p = torch.rand((64, 3), generator=torch.Generator().manual_seed(3)) - .5
+    offset = torch.zeros(3, requires_grad=True)
+    live = ttri.expand_grid(grid, shape)
+    frozen = ttri.ExpandedGrid(live.e.detach(), shape)
+    a = ttri.trilinear_interp_expanded(live, p + offset)
+    assert direct == []
+    b = ttri.trilinear_interp_expanded(frozen, p + offset)
+    assert direct == [64]
+    assert torch.equal(a, b)
+    assert 'GatherRowsBackward' in _graph_nodes(a.sum())
+    assert 'GatherRowsBackward' not in _graph_nodes(b.sum())
+    ga, = torch.autograd.grad(a.sum(), offset)
+    gb, = torch.autograd.grad(b.sum(), offset)
+    assert torch.equal(ga, gb)
+    with torch.no_grad():
+        c_out = ttri.trilinear_interp_expanded(live, p)
+    assert direct == [64, 64]
+    assert torch.equal(c_out, a.detach())
