@@ -2,14 +2,15 @@
 """Chip smoke test of the PyTorch/CUDA port (nice_slam_tpu_torch) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab-parent DIR]
 
 Run from the root of a checkout.  Phases, each printed as a JSON line:
   1. card      name and power limit (nvidia-smi)
   2. build     the port's native sources, one compiler process each, all
                started together: nvcc of the CUDA kernels (csrc/expand.cu,
                fused_mlp.cu, gather.cu, roofline.cu, with ptxas's registers
-               and spills) and g++ of csrc/geometry.cpp
+               and spills; fused_mlp.cu must not spill) and g++ of
+               csrc/geometry.cpp
   3. kernels   each kernel against its plain PyTorch version at the
                ragged test shapes and the room0 main-path shapes (expand
                bit-exact; fold within 1e-5 of fold_plain and of autograd of
@@ -18,9 +19,19 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                expansion, index_add_ for the fold, on a precomputed
                corner-row index; the port never calls them); then the
                fused decoder MLP against fused_mlp_plain, TF32 off, within
-               1e-4 x max(1, max|plain|), at ragged N and at the mesher's
-               262,144-point chunk for the middle, fine and color decoders
-               (no single PyTorch call computes it: library_ms is null);
+               1e-4 x max(1, max|plain|), on points over room0's bound, at
+               ragged N, the kernel's tile edges and the mesher's
+               262,144-point chunk for the middle, fine, color and c 64 /
+               4-wide decoders, and within 1e-5 x max(1, max|plain|) at the
+               three decoders' chunks (FP32 precision: the fast hardware
+               sine fails it, PERF.md): times beside the tensor-core bound (3xTF32),
+               the FP32-core bound and the bytes bound, host time per call,
+               the kernel's warps and shared memory, ptxas's report (no
+               single PyTorch call computes it: library_ms is null);
+               with --ab-parent DIR, the parent tree's wrapper and kernel
+               (DIR/fused_mlp.py, DIR/fused_mlp.cu, built into build/)
+               against this tree's at the three chunks, old, new, new, old,
+               the new one required faster at each (phase fused_mlp_ab);
                then the port's model on the card against the port on the CPU
      gather    the row gather (bit-exact against table[idx]) and its
                scatter-add backward (within 1e-5 x max(1, max|index_add_|),
@@ -47,7 +58,11 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                expand_same_x; bit-exact against their plain versions) and
                expand_corners at the study shapes (28x21x14 and 64x48x40,
                C 32) and room0's finecolor shape: ms, GB/s and the share of
-               3.35 TB/s; the copy's rate is the measured streaming bound
+               3.35 TB/s; the copy beside clone at each shape, also as
+               device time alone (CUDA graphs of 20 calls), and host time
+               per call at 28x21x14;
+               the faster of copy and clone at room0's finecolor buffer is
+               the measured streaming bound
   4. accuracy  configs/Synthetic/synthetic.yaml (40 frames) through
                SlamSystem on the card, writing checkpoints and meshes (one
                on the background thread at frame 20, the final one at 128^3)
@@ -95,6 +110,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +149,7 @@ LOOSE_ROOM0_FACTOR = 5.0
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM FP32 without tensor cores (same)
+TF32_FLOP_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (same)
 
 # room0's volumes (models/grids.grid_shapes of configs/Replica/room0.yaml)
 MAIN_SHAPES = {'coarse': ((11, 8, 7), 32), 'middle': ((37, 28, 22), 32),
@@ -146,9 +163,19 @@ FOLD_TOL = 1e-5
 # fc_c 5 x 32 x c_dim, head 32 x out)
 MLPS = {'middle': (32, False, 15479), 'fine': (64, False, 20599),
         'color': (32, True, 15575)}
+EMBED_MACS = 279               # p @ B, on the FP32 cores
 POINTS_BATCH = 262144          # meshing.points_batch: one lattice chunk
-RAGGED_N = [1, 31, 1023, 1025, 4097]
+# ragged sizes, and the edges of the kernel's 32-point warp tiles and of a
+# 7- / 8-warp block's 224 / 256 points
+RAGGED_N = [1, 15, 16, 17, 31, 63, 64, 65, 1023, 1025, 4097,
+            POINTS_BATCH + 13]
 MLP_TOL = 1e-4                 # x max(1, max|plain|)
+# x max(1, max|plain|) at the three decoders' 262,144-point chunks: FP32
+# precision.  MLP_TOL alone fails 1x and 2xTF32 products (4.1e-3 to 6.4e-3
+# against 8.2e-4 to 1.1e-3) but not the fast hardware sine __sinf (1.8e-4
+# to 2.1e-4); this fails the sine too, and the kernel (3xTF32, precise
+# sinf) is off by 2.4e-5 to 5.0e-5 (PERF.md, the fused MLP)
+MLP_PRECISION_TOL = 1e-5
 SCATTER_TOL = 1e-5             # x max(1, max|index_add_|)
 # the gather studies' shapes: scripts/studies/proto_gather_sweep.py (width
 # sweep, ~60 MB tables, 96K uniform indices), proto_pallas_gather.py (240K
@@ -197,6 +224,33 @@ def cuda_ms(fn, reps: int = 21, inner: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 11) -> float:
+    """Device time per call: `calls` back-to-back calls captured in one
+    CUDA graph, the median over `reps` replays timed by CUDA events.  The
+    host's launch path is out of it (cuda_ms includes it where calls are
+    host-bound)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def phase_card() -> str:
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -206,7 +260,7 @@ def phase_card() -> str:
     return out
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from nice_slam_tpu_torch.mesh import native
     from nice_slam_tpu_torch.ops import expand, fused_mlp, gather, roofline
     modules = (expand, fused_mlp, gather, roofline, native)
@@ -217,13 +271,20 @@ def phase_build() -> None:
         return {'source': os.path.relpath(mod.SOURCE, REPO),
                 'seconds': time.perf_counter() - t0,
                 'ptxas': [l.strip() for l in report.splitlines()
-                          if 'registers' in l or 'spill' in l]}
+                          if 'registers' in l or 'spill' in l
+                          or 'entry function' in l]}
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
         builds = list(pool.map(build, modules))
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'builds': builds})
+    mlp = next(b for b in builds if b['source'].endswith('fused_mlp.cu'))
+    spills = [int(x) for line in mlp['ptxas']
+              for x in re.findall(r'(\d+) bytes spill', line)]
+    if not spills or any(spills):
+        raise AssertionError(f'fused_mlp.cu spills: {mlp["ptxas"]}')
+    return {b['source']: b['ptxas'] for b in builds}
 
 
 def corner_rows(shape, device, same_x: bool = False):
@@ -308,11 +369,49 @@ def phase_kernels() -> dict:
     return {'err': err, 'times': times}
 
 
-def phase_fused_mlp() -> dict:
+def mlp_inputs(n: int, c_dim: int, gen):
+    """n points spread over room0's bound (Fourier arguments up to ~10^3
+    rad) and their features."""
+    import torch
+    lo = torch.tensor([b[0] for b in ROOM0_BOUND], device='cuda')
+    hi = torch.tensor([b[1] for b in ROOM0_BOUND], device='cuda')
+    p = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device='cuda')
+    c = 0.3 * torch.randn((n, c_dim), generator=gen, device='cuda')
+    return p, c
+
+
+def mlp_bounds(n: int, c_dim: int, color: bool, macs: int,
+               packed_floats: int) -> dict:
+    """The least time of one call at n points: tensor cores at FP32
+    accuracy (3 TF32 products per multiply-add of the dense, fc_c and head
+    products, the embedding argument on the FP32 cores), the FP32 cores
+    alone, and the bytes (p, c, out, packed weights once each)."""
+    out_w = 4 if color else 1
+    nbytes = 4 * (n * (3 + c_dim + out_w) + packed_floats)
+    tc_ms = (3 * 2 * (macs - EMBED_MACS) * n / TF32_FLOP_PER_S
+             + 2 * EMBED_MACS * n / FP32_FLOP_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {'bytes': nbytes, 'tensor_core_bound_ms': tc_ms,
+            'fp32_core_bound_ms': 2 * macs * n / FP32_FLOP_PER_S * 1e3,
+            'bytes_bound_ms': bytes_ms, 'bound_ms': max(tc_ms, bytes_ms),
+            'bound_by': 'operations' if tc_ms >= bytes_ms else 'bytes'}
+
+
+def fine4_mlp():
+    """The fourth instantiation (c 64 with the 4-wide head)."""
+    import torch
+    from nice_slam_tpu_torch.models.decoders import MLP, DecoderConfig
+    return MLP(DecoderConfig(), c_dim=64, color=True,
+               generator=torch.Generator().manual_seed(1),
+               device='cpu').to('cuda')
+
+
+def phase_fused_mlp(ptxas: list) -> dict:
     """The fused decoder MLP against its plain version (true FP32: TF32
-    off, as SlamSystem sets it) at ragged N and at one lattice chunk of
-    each decoder, on points spread over room0's bound (Fourier arguments up
-    to ~10^3 rad); times at the chunk."""
+    off, as SlamSystem sets it) at ragged N, at the kernel's tile edges
+    and at one lattice chunk of each decoder (and of the c 64 / 4-wide
+    instantiation), on points spread over room0's bound; times, bounds
+    and host time per call at the chunk."""
     import torch
     from nice_slam_tpu_torch.models.decoders import (
         DecoderConfig, init_nice_decoders)
@@ -323,16 +422,15 @@ def phase_fused_mlp() -> dict:
     decs = init_nice_decoders(DecoderConfig(),
                               generator=torch.Generator().manual_seed(3),
                               device='cpu').to('cuda')
+    mlps = {**{k: decs[k] for k in MLPS}, 'fine4': fine4_mlp()}
     gen = torch.Generator(device='cuda').manual_seed(4)
-    lo = torch.tensor([b[0] for b in ROOM0_BOUND], device='cuda')
-    hi = torch.tensor([b[1] for b in ROOM0_BOUND], device='cuda')
-    err, times = 0.0, {}
-    for name, (c_dim, color, macs) in MLPS.items():
-        params = [w.detach() for w in fm.mlp_params(decs[name])]
+    err, times, configs = 0.0, {}, {}
+    for name, mlp in mlps.items():
+        c_dim, color = mlp.fc_c[0].in_features, mlp.color
+        params = [w.detach() for w in fm.mlp_params(mlp)]
+        configs[name] = fm.kernel_config(c_dim, 4 if color else 1)
         for n in RAGGED_N + [POINTS_BATCH]:
-            p = lo + (hi - lo) * torch.rand((n, 3), generator=gen,
-                                            device='cuda')
-            c = 0.3 * torch.randn((n, c_dim), generator=gen, device='cuda')
+            p, c = mlp_inputs(n, c_dim, gen)
             got = fm.fused_mlp_forward(p, c, params, color=color)
             want = fm.fused_mlp_plain(p, c, params, color=color)
             e = float((got - want).abs().max())
@@ -341,29 +439,96 @@ def phase_fused_mlp() -> dict:
                 raise AssertionError(f'fused_mlp off by {e} (tolerance '
                                      f'{tol}) for {name} at N={n}')
             err = max(err, e)
-            if n == POINTS_BATCH:
-                out_w = 4 if color else 1
-                packed = fm.pack_weights(params).numel()
-                nbytes = 4 * (n * (3 + c_dim + out_w) + packed)
-                ops_ms = 2 * macs * n / FP32_FLOP_PER_S * 1e3
-                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            if n == POINTS_BATCH and name in MLPS:
+                precision = MLP_PRECISION_TOL * max(
+                    1.0, float(want.abs().max()))
+                if not e <= precision:
+                    raise AssertionError(
+                        f'fused_mlp off by {e} for {name} at N={n}: not '
+                        f'FP32-precise (bound {precision})')
                 times[name] = {
-                    'n': n, 'c_dim': c_dim, 'out': out_w,
-                    'macs_per_point': macs, 'bytes': nbytes,
+                    'n': n, 'c_dim': c_dim, 'out': 4 if color else 1,
+                    'macs_per_point': MLPS[name][2],
                     'ms': cuda_ms(lambda: fm.fused_mlp_forward(
                         p, c, params, color=color)),
                     'plain_ms': cuda_ms(lambda: fm.fused_mlp_plain(
                         p, c, params, color=color)),
-                    'ops_bound_ms': ops_ms, 'bytes_bound_ms': bytes_ms,
-                    'bound_ms': max(ops_ms, bytes_ms),
-                    'bound_by': ('operations' if ops_ms >= bytes_ms
-                                 else 'bytes')}
+                    'host_us': host_us(lambda: fm.fused_mlp_forward(
+                        p, c, params, color=color), calls=50, runs=5),
+                    'max_abs_err': e, 'tolerance': tol,
+                    'precision_bound': precision,
+                    **mlp_bounds(n, c_dim, color, MLPS[name][2],
+                                 configs[name]['pack_floats'])}
+                row = times[name]
+                row['share_of_bound'] = row['bound_ms'] / row['ms']
+                row['share_of_fp32_core_bound'] = (row['fp32_core_bound_ms']
+                                                   / row['ms'])
     emit({'phase': 'kernels_fused_mlp', 'max_abs_err': err,
           'tolerance': f'{MLP_TOL} x max(1, max|plain|)',
+          'precision_bound': f'{MLP_PRECISION_TOL} x max(1, max|plain|) '
+                             'at the chunks',
           'ragged_n': RAGGED_N, 'main_shapes': times,
+          'kernel_config': configs, 'ptxas': ptxas,
           'library_ms': None,
           'library_note': 'no single PyTorch call computes the decoder MLP'})
     return {'err': err, 'times': times}
+
+
+def load_parent_mlp(directory: str):
+    """The parent tree's fused-MLP wrapper (`fused_mlp.py`) as a module of
+    its own, bound to the parent's `fused_mlp.cu` beside it and built into
+    build/ under another name: its packing, checks and launch counter are
+    its own."""
+    import importlib.util
+    from nice_slam_tpu_torch.ops.build import BUILD_DIR
+    spec = importlib.util.spec_from_file_location(
+        'parent_fused_mlp', os.path.join(directory, 'fused_mlp.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = os.path.join(directory, 'fused_mlp.cu')
+    mod.LIBRARY = os.path.join(BUILD_DIR, 'libnst_fused_mlp_parent.so')
+    mod.build_library()
+    return mod
+
+
+def phase_mlp_ab(directory: str) -> dict:
+    """The parent's fused MLP (wrapper and kernel, from `directory`)
+    against this tree's at the three decoders' 262,144-point chunks, in
+    the order old, new, new, old, each checked against the plain version
+    first."""
+    import torch
+    from nice_slam_tpu_torch.models.decoders import (
+        DecoderConfig, init_nice_decoders)
+    from nice_slam_tpu_torch.ops import fused_mlp as fm
+    old = load_parent_mlp(directory)
+    decs = init_nice_decoders(DecoderConfig(),
+                              generator=torch.Generator().manual_seed(3),
+                              device='cpu').to('cuda')
+    gen = torch.Generator(device='cuda').manual_seed(8)
+    rows = {}
+    for name, (c_dim, color, _) in MLPS.items():
+        params = [w.detach() for w in fm.mlp_params(decs[name])]
+        p, c = mlp_inputs(POINTS_BATCH, c_dim, gen)
+        want = fm.fused_mlp_plain(p, c, params, color=color)
+        tol = MLP_TOL * max(1.0, float(want.abs().max()))
+        runs = {'old': old.fused_mlp_forward, 'new': fm.fused_mlp_forward}
+        for tree, fn in runs.items():
+            e = float((fn(p, c, params, color=color) - want).abs().max())
+            if not e <= tol:
+                raise AssertionError(f'{tree} fused_mlp off by {e} for '
+                                     f'{name}')
+        order = ['old', 'new', 'new', 'old']
+        ms = [cuda_ms(lambda: runs[tree](p, c, params, color=color))
+              for tree in order]
+        rows[name] = {'order': order, 'ms': ms,
+                      'old_ms': statistics.mean(ms[0::3]),
+                      'new_ms': statistics.mean(ms[1:3])}
+        rows[name]['speedup'] = rows[name]['old_ms'] / rows[name]['new_ms']
+    emit({'phase': 'fused_mlp_ab', 'parent': directory, 'chunks': rows})
+    slower = [k for k, r in rows.items() if r['new_ms'] >= r['old_ms']]
+    if slower:
+        raise AssertionError(f'the new fused_mlp is not faster at {slower}')
+    return rows
 
 
 def phase_model_parity() -> None:
@@ -741,10 +906,36 @@ def phase_roofline() -> dict:
             'share_of_hbm': nbytes / ms / 1e-3 / HBM_BYTES_PER_S,
             'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3})
     launches = dict(rf.LAUNCHES)
-    copy = next(r for r in rows if r['probe'] == 'copy'
-                and r['shape_name'] == 'room0_finecolor')
+    # the copy against clone, also as device time alone (CUDA graphs), with
+    # host time per call at the smallest shape (those launches come after
+    # the count is read)
+    copies = {}
+    for name, (shape, c, small, big) in inputs.items():
+        r = next(r for r in rows if r['probe'] == 'copy'
+                 and r['shape_name'] == name)
+        copies[name] = {
+            'bytes': r['bytes'], 'ms': r['ms'], 'clone_ms': r['library_ms'],
+            'bytes_per_s': r['bytes'] / r['ms'] * 1e3,
+            'clone_bytes_per_s': r['bytes'] / r['library_ms'] * 1e3,
+            'no_slower_than_clone': r['ms'] <= r['library_ms'],
+            'graph_ms': graph_ms(lambda: rf.probe('copy', big)),
+            'clone_graph_ms': graph_ms(lambda: big.clone())}
+        copies[name]['no_slower_than_clone_on_device'] = (
+            copies[name]['graph_ms'] <= copies[name]['clone_graph_ms'])
+    small_big = inputs['study_default'][3]
+    copies['study_default'].update(
+        host_us=host_us(lambda: rf.probe('copy', small_big)),
+        clone_host_us=host_us(lambda: small_big.clone()))
+    copy = copies['room0_finecolor']
+    # the measured streaming bound: the faster of the copy probe and clone
+    # at room0's finecolor buffer (a bound may not be more lenient than a
+    # copy the card was seen to make)
     res = {'phase': 'roofline', 'rows': rows, 'launches': launches,
-           'measured_stream_bytes_per_s': copy['bytes'] / copy['ms'] * 1e3,
+           'copy_vs_clone': copies,
+           'copy_bytes_per_s': copy['bytes_per_s'],
+           'clone_bytes_per_s': copy['clone_bytes_per_s'],
+           'measured_stream_bytes_per_s': max(copy['bytes_per_s'],
+                                              copy['clone_bytes_per_s']),
            'datasheet_bytes_per_s': HBM_BYTES_PER_S}
     emit(res)
     if min(launches.values()) == 0:
@@ -1052,8 +1243,8 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
     """One entry per TPU function that reaches pl.pallas_call (rows 1-11
     of PERF.md's table; row 10's three bodies one entry each), plus the
     gather's backward.  Launches are the room0 run's, the probes' those
-    of the roofline study.  measured_bound_ms: the bytes over the copy
-    probe's measured rate."""
+    of the roofline study.  measured_bound_ms: the bytes over the measured
+    streaming rate (the faster of the copy probe and clone)."""
     times = kern['times']['finecolor']
     fine = mlp['times']['fine']
     stream = roof['measured_stream_bytes_per_s']
@@ -1141,7 +1332,12 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
                lau['fused_mlp'], mlp['err'], fine['ms'], fine['plain_ms'],
                fine['bound_ms'], None,
                f'fine decoder, {POINTS_BATCH} points, c 64',
-               bound_by=fine['bound_by']),
+               bound_by=fine['bound_by'],
+               fp32_core_bound_ms=fine['fp32_core_bound_ms'],
+               bytes_bound_ms=fine['bytes_bound_ms'],
+               others={k: {x: mlp['times'][k][x] for x in (
+                   'ms', 'plain_ms', 'bound_ms', 'fp32_core_bound_ms')}
+                   for k in ('middle', 'color')}),
         gather_row(6, stud + 'proto_gather_sweep.py:57', 'sweep_w1024'),
         gather_row(7, stud + 'proto_pallas_gather.py:42', 'runs48'),
         gather_row(8, stud + 'proto_gather_paths.py:95', 'paths'),
@@ -1160,7 +1356,19 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
     ]
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description='Chip smoke test of the '
+                                 'PyTorch/CUDA port on one GPU.')
+    ap.add_argument('--ab-parent', metavar='DIR',
+                    help="time the fused MLP against another tree's "
+                    "(DIR holds that tree's ops/fused_mlp.py and "
+                    'csrc/fused_mlp.cu) after the kernels phase')
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     try:
         import torch
     except ImportError:
@@ -1186,12 +1394,15 @@ def main() -> int:
 
     try:
         card = phase_card()
-        phase_build()
+        ptxas = phase_build()
         lap('build')
         kern = phase_kernels()
-        mlp = phase_fused_mlp()
+        mlp = phase_fused_mlp(ptxas['nice_slam_tpu_torch/csrc/fused_mlp.cu'])
         phase_model_parity()
         lap('kernels')
+        if args.ab_parent:
+            phase_mlp_ab(args.ab_parent)
+            lap('fused_mlp_ab')
         gather = phase_gather()
         lap('gather')
         roof = phase_roofline()

@@ -71,10 +71,12 @@ def launch(fn, *args, device: int) -> None:
     converts under the function's `c_void_p` argtypes, and sizes.  The
     stream is read once per call, as the raw handle that
     `torch.cuda.current_stream().cuda_stream` gives, without building a
-    `Stream` object; `torch.cuda.device` is entered only when `device` is
-    not the current device.  Raises if the C function returns a CUDA error
+    `Stream` object; the current device is read without
+    `torch.cuda.current_device`'s initialization check (a CUDA tensor
+    exists), and `torch.cuda.device` is entered only when `device` is not
+    the current device.  Raises if the C function returns a CUDA error
     (it returns `cudaGetLastError()` after its launches)."""
-    if device == torch.cuda.current_device():
+    if device == torch._C._cuda_getDevice():   # CUDA is initialized here
         err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
     else:
         with torch.cuda.device(device):

@@ -5,8 +5,9 @@ features) are evaluated over very large point batches on the eval-only
 paths: the mesher's lattice and vertex-color queries and full-frame
 renders.  Eager PyTorch writes every layer's [N, 32] activations to device
 memory; `fused_mlp` runs the whole stack in one CUDA kernel
-(`csrc/fused_mlp.cu`) that keeps the weights in shared memory and the
-activations in registers.  Its source note says what bounds it on an H100.
+(`csrc/fused_mlp.cu`) on the tensor cores: 3xTF32 products of tiles of
+points against weights kept in shared memory, the activations in
+registers.  Its source note says what bounds it on an H100.
 
   * `fused_mlp_plain(p, c, params, color=)`: the plain PyTorch version, the
     same operations as `MLP.forward` (bit-identical to it on the CPU).
@@ -18,6 +19,9 @@ activations in registers.  Its source note says what bounds it on an H100.
     version, recomputed (the JAX package's custom_vjp does the same: it has
     no backward kernel).
   * `fused_mlp(mlp, p, c)`: the entry point for an `MLP` module.
+  * `split_tf32`, `pack_weights`, `unpack`: the weights split into TF32
+    hi/lo halves and laid out in the kernel's fragment order, and back;
+    `packed_weights` builds that buffer once per parameter set.
 
 `LAUNCHES['fused_mlp']` counts kernel launches, one per launch and nowhere
 else.  The library is built with nvcc into the checkout's `build/` at first
@@ -28,6 +32,8 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
+from collections import OrderedDict
 
 import torch
 from torch.nn import functional as F
@@ -44,6 +50,9 @@ LAUNCHES = {'fused_mlp': 0}
 # 32, 5 blocks, skip after block 2, 93 Fourier features)
 HIDDEN, N_BLOCKS, SKIPS, EMBED = 32, 5, (2,), 93
 C_DIMS, OUT_DIMS = (32, 64), (1, 4)
+# the kernel's padded widths: the embedding to k8 tiles, the head to an n8
+# tile
+EMBED_PAD, HEAD_PAD = 96, 8
 
 _lib = None
 
@@ -70,8 +79,10 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         lib.nst_fused_mlp.restype = ctypes.c_int
-        lib.nst_fused_mlp_pack_size.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.nst_fused_mlp_pack_size.restype = ctypes.c_int
+        for name in ('nst_fused_mlp_pack_size', 'nst_fused_mlp_smem_bytes',
+                     'nst_fused_mlp_warps'):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -101,23 +112,162 @@ def _split(params):
     return b_mat, pts, fcs, params[-2], params[-1]
 
 
-def _pad4(x: torch.Tensor) -> torch.Tensor:
-    x = x.reshape(-1)
-    pad = (-x.numel()) % 4
-    return F.pad(x, (0, pad)) if pad else x
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to TF32's 10 mantissa bits, to nearest with
+    ties away from zero (half an ulp added to the magnitude's bits, then
+    the low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of a float32 tensor as the kernel splits an operand for its
+    3xTF32 products: hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi).
+    x - hi is exact in float32; hi + lo is x within 2^-21 relative."""
+    hi = _rna_tf32(x)
+    return hi, _rna_tf32(x - hi)
+
+
+def _fragments(w: torch.Tensor) -> torch.Tensor:
+    """A weight [N, K] (nn.Linear's [out, in], N and K multiples of 8) as
+    the kernel's B fragments: [K/8][N/8][lane 4g + t][hi(2t), hi(2t+1),
+    lo(2t), lo(2t+1)] of row 8 nt + g and columns 8 kt + 2t + {0, 1}."""
+    n, k = w.shape
+    hi, lo = split_tf32(w)
+
+    def order(x):      # [kt, nt, g, t, j]
+        return x.reshape(n // 8, 8, k // 8, 4, 2).permute(2, 0, 1, 3, 4)
+
+    return torch.stack([order(hi), order(lo)], dim=-2).reshape(-1)
+
+
+def _unfragments(flat: torch.Tensor, n: int, k: int):
+    """(hi, lo) [N, K] of `_fragments`' output."""
+    x = flat.reshape(k // 8, n // 8, 8, 4, 2, 2)     # kt, nt, g, t, hl, j
+    x = x.permute(4, 1, 2, 0, 3, 5).reshape(2, n, k)
+    return x[0], x[1]
+
+
+def _in_width(i: int) -> int:
+    """Padded input width of dense layer i: the embedding (93 -> 96) at
+    layer 0, [embedding, hidden] after the skip, hidden otherwise."""
+    if i == 0:
+        return EMBED_PAD
+    return EMBED_PAD + HIDDEN if i - 1 in SKIPS else HIDDEN
+
+
+def pack_size(c_dim: int) -> int:
+    """Floats of the packed buffer (nst_fused_mlp_pack_size)."""
+    fp32 = 3 * EMBED_PAD + 2 * N_BLOCKS * HIDDEN + HEAD_PAD
+    split = (sum(_in_width(i) for i in range(N_BLOCKS)) * HIDDEN
+             + N_BLOCKS * c_dim * HIDDEN + HIDDEN * HEAD_PAD)
+    return fp32 + 2 * split
 
 
 def pack_weights(params) -> torch.Tensor:
     """All weights of one MLP in one contiguous float32 buffer, in the
-    layout of csrc/fused_mlp.cu: B [3][93] | (W_i [in][32], b_i) x 5 |
-    (Wc_i [C][32], bc_i) x 5 | W_o [32][out] | b_o, each section padded to
-    a multiple of 4 floats."""
+    layout csrc/fused_mlp.cu reads: B [3][96] | b_i [5][32] | bc_i [5][32]
+    | b_o [8] in float32, then the hi/lo fragments (`_fragments`) of W_i
+    (layer 0's input padded 93 -> 96, layer 3's [e, h] as [e, 0, 0, 0,
+    h]), of Wc_i and of W_o (rows padded to 8).  Pads are zero."""
     b_mat, pts, fcs, w_o, b_o = _split(params)
-    pieces = [_pad4(b_mat)]
-    for w, b in pts + fcs:
-        pieces += [w.t().reshape(-1), b]
-    pieces += [w_o.t().reshape(-1), _pad4(b_o)]
+    pad = EMBED_PAD - EMBED
+
+    def pad_embed(w):
+        return torch.cat([w[:, :EMBED], w.new_zeros((w.shape[0], pad)),
+                          w[:, EMBED:]], dim=1)
+
+    pieces = [F.pad(b_mat, (0, pad)).reshape(-1)]
+    pieces += [b for _, b in pts] + [b for _, b in fcs]
+    pieces.append(F.pad(b_o, (0, HEAD_PAD - b_o.shape[0])))
+    pieces += [_fragments(pad_embed(w) if _in_width(i) != HIDDEN else w)
+               for i, (w, _) in enumerate(pts)]
+    pieces += [_fragments(w) for w, _ in fcs]
+    pieces.append(_fragments(F.pad(w_o, (0, 0, 0, HEAD_PAD - w_o.shape[0]))))
     return torch.cat(pieces)
+
+
+def unpack(packed: torch.Tensor, c_dim: int, out_dim: int) -> dict:
+    """The weights of a packed buffer: 'B' [3, 93], 'b' and 'bc' (five [32]
+    each), 'b_o' [out] in float32; 'W', 'Wc' (five (hi, lo) pairs each)
+    and 'W_o' (hi, lo) in nn.Linear's [out, in] layout without the pads.
+    Raises if the length or a pad is wrong."""
+    if packed.numel() != pack_size(c_dim):
+        raise ValueError(f'{packed.numel()} floats, the layout has '
+                         f'{pack_size(c_dim)}')
+    pos = 0
+
+    def take(m):
+        nonlocal pos
+        pos += m
+        return packed[pos - m:pos]
+
+    b_mat = take(3 * EMBED_PAD).reshape(3, EMBED_PAD)
+    b = take(N_BLOCKS * HIDDEN).reshape(N_BLOCKS, HIDDEN)
+    bc = take(N_BLOCKS * HIDDEN).reshape(N_BLOCKS, HIDDEN)
+    b_o = take(HEAD_PAD)
+    ws = [_unfragments(take(2 * HIDDEN * _in_width(i)), HIDDEN,
+                       _in_width(i)) for i in range(N_BLOCKS)]
+    wcs = [_unfragments(take(2 * HIDDEN * c_dim), HIDDEN, c_dim)
+           for _ in range(N_BLOCKS)]
+    w_o = _unfragments(take(2 * HEAD_PAD * HIDDEN), HEAD_PAD, HIDDEN)
+    pads = [b_mat[:, EMBED:], b_o[out_dim:], *(x[out_dim:] for x in w_o)]
+    pads += [x[:, EMBED:EMBED_PAD] for i, pair in enumerate(ws)
+             if _in_width(i) != HIDDEN for x in pair]
+    if any(bool(x.any()) for x in pads):
+        raise ValueError('nonzero padding in the packed weights')
+
+    def strip(x, i):
+        if _in_width(i) == HIDDEN:
+            return x
+        return torch.cat([x[:, :EMBED], x[:, EMBED_PAD:]], dim=1)
+
+    return {'B': b_mat[:, :EMBED], 'b': list(b), 'bc': list(bc),
+            'b_o': b_o[:out_dim],
+            'W': [tuple(strip(x, i) for x in pair)
+                  for i, pair in enumerate(ws)],
+            'Wc': wcs, 'W_o': tuple(x[:out_dim] for x in w_o)}
+
+
+# the packed buffers of the parameter sets seen last, newest at the end
+_PACKED: OrderedDict = OrderedDict()
+_PACKED_MAX = 8
+_PACKED_LOCK = threading.Lock()
+
+
+def packed_weights(params) -> torch.Tensor:
+    """`pack_weights(params)`, built once per parameter set.
+
+    Cached under each parameter's data pointer, shape and version counter
+    (`_version`, which every in-place update bumps: MaskedAdam's step,
+    `load_state_dict` in `SlamSystem.restore`, `param.add_`), so an update
+    rebuilds it; a write through `.data`, which has a counter of its own,
+    would not.  An entry keeps its parameters alive, so no other tensor can
+    take their addresses while it is cached.  On the card the buffer is
+    complete before it is returned (the building stream is synchronized
+    once), and a use from another stream is recorded for the allocator."""
+    key = tuple((w.data_ptr(), w._version, w.shape) for w in params)
+    cuda = params[0].is_cuda
+    stream = (torch._C._cuda_getCurrentRawStream(params[0].get_device())
+              if cuda else None)
+    with _PACKED_LOCK:
+        hit = _PACKED.get(key)
+        if hit is not None:
+            _PACKED.move_to_end(key)
+    if hit is not None:
+        packed, built_on = hit[0], hit[1]
+        if stream != built_on:
+            packed.record_stream(torch.cuda.current_stream(packed.device))
+        return packed
+    with torch.no_grad():
+        packed = pack_weights(params)
+    if cuda:
+        torch.cuda.current_stream(packed.device).synchronize()
+    with _PACKED_LOCK:
+        _PACKED[key] = (packed, stream, list(params))
+        while len(_PACKED) > _PACKED_MAX:
+            _PACKED.popitem(last=False)
+    return packed
 
 
 def _check_config(params, c: torch.Tensor) -> tuple[int, int]:
@@ -179,6 +329,25 @@ def _check_cuda_f32(x: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f'fused_mlp: {name} is not 16-byte aligned')
 
 
+_KERNEL_PACK_SIZES: dict = {}
+
+
+def _kernel_pack_size(lib, c_dim: int, out_dim: int) -> int:
+    key = (c_dim, out_dim)
+    if key not in _KERNEL_PACK_SIZES:
+        _KERNEL_PACK_SIZES[key] = lib.nst_fused_mlp_pack_size(c_dim, out_dim)
+    return _KERNEL_PACK_SIZES[key]
+
+
+def kernel_config(c_dim: int, out_dim: int) -> dict:
+    """Warps per block and dynamic shared memory of the kernel's
+    instantiation for (c_dim, out_dim), from the library."""
+    lib = _library()
+    return {'warps': lib.nst_fused_mlp_warps(c_dim, out_dim),
+            'smem_bytes': lib.nst_fused_mlp_smem_bytes(c_dim, out_dim),
+            'pack_floats': lib.nst_fused_mlp_pack_size(c_dim, out_dim)}
+
+
 def fused_mlp_forward(p: torch.Tensor, c: torch.Tensor, params, *,
                       color: bool) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version for CPU tensors (both
@@ -200,9 +369,8 @@ def fused_mlp_forward(p: torch.Tensor, c: torch.Tensor, params, *,
             raise ValueError('fused_mlp: weights must be float32 on '
                              f'{p.device}, got {w.dtype} on {w.device}')
     lib = _library()
-    with torch.no_grad():
-        packed = pack_weights(params)
-    if packed.numel() != lib.nst_fused_mlp_pack_size(c_dim, out_dim):
+    packed = packed_weights(params)
+    if packed.numel() != _kernel_pack_size(lib, c_dim, out_dim):
         raise RuntimeError('fused_mlp: packed weights do not match the '
                            "kernel's layout")
     out = torch.empty((n, out_dim) if color else (n,), dtype=torch.float32,

@@ -19,7 +19,8 @@ JAX bodies, on x-planes of P = ny*nz rows with the study's plane masks and
 tail-replicating shift.  Only chip_smoke.py and the tests call them: as in
 the JAX package, the SLAM path never does.  The copy's measured rate is the
 streaming bound on the card that the data-movement kernels are compared
-with.
+with.  The copy streams with several loads in flight per thread and
+evict-first hints on buffers larger than the L2 cache.
 
 Each wrapper launches the kernel for a CUDA tensor and uses the plain
 version for a CPU tensor.  `LAUNCHES` counts kernel launches per mode.
@@ -148,32 +149,40 @@ def probe_plain(mode: str, x: torch.Tensor,
 # wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones
 # ---------------------------------------------------------------------------
 
+_MODE_INDEX = {mode: i for i, mode in enumerate(MODES)}
+_WIDEN = {'copy': 1, 'widen8': 8, 'shifts': 1, 'expand_same_x': 8}
+
+
 def probe(mode: str, x: torch.Tensor,
           shape: tuple[int, int, int] | None = None) -> torch.Tensor:
     """Run probe `mode` on x ([R, W] for copy; [nx*ny*nz, C] of `shape`
-    for the others)."""
-    if mode not in MODES:
+    for the others).  The card's path is kept short: at the study's
+    smallest shape a call's host time is longer than the copy."""
+    index = _MODE_INDEX.get(mode)
+    if index is None:
         raise ValueError(f'unknown probe {mode!r}')
-    if x.device.type == 'cpu':
-        return probe_plain(mode, x, shape)
-    if x.device.type != 'cuda':
+    if not x.is_cuda:
+        if x.device.type == 'cpu':
+            return probe_plain(mode, x, shape)
         raise ValueError(f'probe: unsupported device {x.device}')
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f'probe: needs a contiguous 2-D float32 tensor, '
                          f'got {x.dtype} {tuple(x.shape)}')
     rows, c = x.shape
-    if c % 4 or x.data_ptr() % 16:
+    ptr = x.data_ptr()
+    if c % 4 or ptr % 16:
         raise ValueError(f'probe: width {c} not a multiple of 4, or the '
                          'data pointer not 16-byte aligned')
     ny = nz = 1
-    if mode != 'copy':
+    if index:
         nx, ny, nz = shape
         if rows != nx * ny * nz:
             raise ValueError(f'probe: {rows} rows for shape {shape}')
-    width = 8 * c if mode in ('widen8', 'expand_same_x') else c
-    out = torch.empty((rows, width), dtype=x.dtype, device=x.device)
-    launch(_library().nst_roofline_probe, MODES.index(mode), x.data_ptr(),
-           out.data_ptr(), rows, ny, nz, c, device=x.get_device())
+    widen = _WIDEN[mode]
+    out = (torch.empty_like(x) if widen == 1 else
+           torch.empty((rows, widen * c), dtype=x.dtype, device=x.device))
+    launch(_library().nst_roofline_probe, index, ptr, out.data_ptr(), rows,
+           ny, nz, c, device=x.get_device())
     LAUNCHES[f'roofline_{mode}'] += 1
     return out
 

@@ -183,11 +183,195 @@ def test_dispatch_takes_the_plain_path_outside_the_kernels_configuration():
 
 
 def test_packed_layout_sizes():
-    """The packed buffer has the lengths the kernel's layout computes:
-    280 (B) + 10,208 (five dense layers) + 5 x (32C + 32) + 32 x out +
-    out, rounded up to 4."""
+    """The packed buffer has the lengths the kernel's layout computes: 616
+    float32 (B [3][96], b_i, bc_i, b_o [8]) + 2 x (32 x (96 + 32 + 32 +
+    128 + 32) dense + 5 x 32C fc_c + 8 x 32 head) TF32 halves."""
     decs = td.init_nice_decoders(td.DecoderConfig(),
                                  generator=torch.Generator(), device='cpu')
     sizes = {name: fm.pack_weights(fm.mlp_params(decs[name])).numel()
              for name in ('middle', 'fine', 'color')}
-    assert sizes == {'middle': 15804, 'fine': 20924, 'color': 15900}
+    assert sizes == {'middle': 31848, 'fine': 42088, 'color': 31848}
+    assert sizes['middle'] == fm.pack_size(32)
+    assert sizes['fine'] == fm.pack_size(64)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic and packing, on the CPU
+# ---------------------------------------------------------------------------
+
+# room0's bound (configs/Replica/room0.yaml): Fourier arguments ~10^3 rad
+ROOM0_BOUND = ((-2.9, 8.9), (-3.2, 5.5), (-3.5, 3.3))
+MLP_TOL = 1e-4          # x max(1, max|plain|), as chip_smoke.py holds it
+
+
+def _rna_tf32_reference(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32 in float64 arithmetic: the significand rounded to 11
+    bits, ties away from zero."""
+    m, e = np.frexp(np.abs(x.astype(np.float64)))       # m in [0.5, 1)
+    return np.sign(x) * np.ldexp(np.floor(m * 2.0 ** 11 + 0.5), e - 11)
+
+
+def test_split_tf32_rounds_as_cvt_rna():
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=4000) * 10.0 ** rng.uniform(-6, 4, 4000)
+         ).astype(np.float32)
+    bits = x.view(np.int32)
+    # ties (low 13 bits exactly half an ulp), and one below / above them
+    ties = ((bits[:300] & -0x2000) | 0x1000).view(np.float32)
+    near = np.concatenate([ties, (ties.view(np.int32) - 1).view(np.float32),
+                           (ties.view(np.int32) + 1).view(np.float32)])
+    x = np.concatenate([x, near, -near, np.float32([0.0, 1.0, -2.5])])
+    hi, lo = (np_of(t) for t in fm.split_tf32(t_of(x)))
+    for part in (hi, lo):
+        assert not (part.view(np.int32) & 0x1FFF).any()
+    np.testing.assert_array_equal(hi, _rna_tf32_reference(x))
+    np.testing.assert_array_equal(
+        lo, _rna_tf32_reference((x - hi).astype(np.float32)))
+    err = np.abs(hi.astype(np.float64) + lo - x.astype(np.float64))
+    assert (err <= 2.0 ** -21 * np.abs(x)).all()
+
+
+def _mlp(name, decs):
+    if name == 'fine4':       # c 64 with out 4: the fourth instantiation
+        return td.MLP(td.DecoderConfig(), c_dim=64, color=True,
+                      generator=torch.Generator().manual_seed(1),
+                      device='cpu')
+    return decs[name]
+
+
+@pytest.mark.parametrize('name,c_dim,out_dim', [
+    ('middle', 32, 1), ('fine', 64, 1), ('color', 32, 4), ('fine4', 64, 4)])
+def test_unpack_inverts_pack(setup, name, c_dim, out_dim):
+    """Every weight comes back from the packed buffer bit for bit: the
+    float32 sections as they are, the products' weights as the TF32 halves
+    split_tf32 gives."""
+    params = [w.detach() for w in fm.mlp_params(_mlp(name, setup[2]))]
+    got = fm.unpack(fm.pack_weights(params), c_dim, out_dim)
+    b_mat, pts, fcs, w_o, b_o = fm._split(params)
+
+    def same(a, b):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+    same(got['B'], b_mat)
+    same(got['b_o'], b_o)
+    for i in range(fm.N_BLOCKS):
+        same(got['b'][i], pts[i][1])
+        same(got['bc'][i], fcs[i][1])
+        for pair, w in ((got['W'][i], pts[i][0]), (got['Wc'][i], fcs[i][0])):
+            for a, b in zip(pair, fm.split_tf32(w)):
+                same(a, b)
+    for a, b in zip(got['W_o'], fm.split_tf32(w_o)):
+        same(a, b)
+
+
+def emulate_kernel(p: torch.Tensor, c: torch.Tensor, packed: torch.Tensor,
+                   c_dim: int, out_dim: int, products: int = 3
+                   ) -> torch.Tensor:
+    """csrc/fused_mlp.cu's arithmetic on the CPU, from its packed buffer:
+    the embedding argument as its float32 fmaf chain (each fma one
+    rounding), precise sin in float32, and every product of a layer as
+    lo.hi + hi.lo + hi.hi of TF32 halves summed in float32 (`products` 2
+    drops lo.hi, 1 keeps hi.hi only: the cheaper arithmetic the tolerance
+    has to fail)."""
+    w = fm.unpack(packed, c_dim, out_dim)
+    bd, pd = w['B'].double(), p.double()
+
+    def f32(x):
+        return x.float().double()
+
+    arg = f32(pd[:, 0:1] * bd[0])
+    arg = f32(pd[:, 1:2] * bd[1] + arg)
+    arg = f32(pd[:, 2:3] * bd[2] + arg)
+    e = torch.sin(arg.float())
+
+    def mm3(a, pair):
+        hi, lo = pair
+        ahi, alo = fm.split_tf32(a)
+        terms = [alo @ hi.T, ahi @ lo.T][3 - products:]
+        return sum(terms, ahi @ hi.T)
+
+    h = e
+    for i in range(fm.N_BLOCKS):
+        x = torch.cat([e, h], dim=-1) if i - 1 in fm.SKIPS else h
+        h = (torch.relu(mm3(x, w['W'][i]) + w['b'][i]) + w['bc'][i]
+             + mm3(c, w['Wc'][i]))
+    out = mm3(h, w['W_o']) + w['b_o']
+    return out if out_dim == 4 else out[:, 0]
+
+
+@pytest.mark.parametrize('name,c_dim,color', DECODERS)
+def test_kernel_arithmetic_matches_plain_and_jax(setup, name, c_dim, color):
+    """The 3xTF32 emulation over room0's bound (arguments ~10^3 rad)
+    against fused_mlp_plain and the JAX package's Pallas kernel in
+    interpret mode, within MLP_TOL x max(1, max|plain|)."""
+    dcfg, params, decs = setup
+    rng = np.random.default_rng(11)
+    lo, hi = np.array(ROOM0_BOUND, np.float32).T
+    p = (lo + (hi - lo) * rng.uniform(size=(1200, 3))).astype(np.float32)
+    c = (0.3 * rng.normal(size=(1200, c_dim))).astype(np.float32)
+    mparams = [w.detach() for w in fm.mlp_params(decs[name])]
+    got = emulate_kernel(t_of(p), t_of(c), fm.pack_weights(mparams), c_dim,
+                         4 if color else 1)
+    plain = fm.fused_mlp_plain(t_of(p), t_of(c), mparams, color=color)
+    want = np.asarray(jax_fused_mlp(params[name], dcfg, jnp.asarray(p),
+                                    jnp.asarray(c), color, (2,), True))
+    tol = MLP_TOL * max(1.0, float(plain.abs().max()))
+    assert float((got - plain).abs().max()) <= tol
+    assert float(np.abs(np_of(got) - want).max()) <= tol
+
+
+def test_packed_weights_cache_hits_and_rebuilds_after_an_update():
+    mlp = td.init_nice_decoders(td.DecoderConfig(),
+                                generator=torch.Generator().manual_seed(2),
+                                device='cpu')['fine']
+    first = fm.packed_weights(fm.mlp_params(mlp))
+    assert fm.packed_weights(fm.mlp_params(mlp)) is first
+    # detached views share the parameters' storage and version counter
+    assert fm.packed_weights([w.detach() for w in fm.mlp_params(mlp)]) \
+        is first
+    with torch.no_grad():
+        mlp.fc_c[3].weight.add_(0.25)
+    again = fm.packed_weights(fm.mlp_params(mlp))
+    assert again is not first
+    assert torch.equal(again, fm.pack_weights(fm.mlp_params(mlp)))
+    assert fm.packed_weights(fm.mlp_params(mlp)) is again
+
+
+def test_packed_weights_cache_rebuilds_after_a_restore():
+    """SlamSystem.restore loads the decoders with load_state_dict, which
+    copies into the parameters in place."""
+    gen = torch.Generator().manual_seed(3)
+    mlp, other = (td.init_nice_decoders(td.DecoderConfig(), generator=gen,
+                                        device='cpu')['middle']
+                  for _ in range(2))
+    first = fm.packed_weights(fm.mlp_params(mlp))
+    mlp.load_state_dict(other.state_dict())
+    again = fm.packed_weights(fm.mlp_params(mlp))
+    assert again is not first
+    assert torch.equal(again, fm.pack_weights(fm.mlp_params(other)))
+
+
+def _room0_inputs(n, c_dim, seed):
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array(ROOM0_BOUND, np.float32).T
+    p = (lo + (hi - lo) * rng.uniform(size=(n, 3))).astype(np.float32)
+    c = (0.3 * rng.normal(size=(n, c_dim))).astype(np.float32)
+    return t_of(p), t_of(c)
+
+
+@pytest.mark.parametrize('products', [1, 2])
+@pytest.mark.parametrize('name,c_dim,color', DECODERS)
+def test_tolerance_fails_fewer_tf32_products(setup, name, c_dim, color,
+                                             products):
+    """MLP_TOL x max(1, max|plain|) tells the kernel's 3xTF32 products from
+    cheaper ones: with lo.hi dropped (2xTF32) or with hi.hi alone (1xTF32)
+    the emulation is off by more than the tolerance on room0's range."""
+    p, c = _room0_inputs(4096, c_dim, 12)
+    mparams = [w.detach() for w in fm.mlp_params(setup[2][name])]
+    packed, out_dim = fm.pack_weights(mparams), 4 if color else 1
+    plain = fm.fused_mlp_plain(p, c, mparams, color=color)
+    tol = MLP_TOL * max(1.0, float(plain.abs().max()))
+    exact = emulate_kernel(p, c, packed, c_dim, out_dim)
+    cheap = emulate_kernel(p, c, packed, c_dim, out_dim, products=products)
+    assert float((exact - plain).abs().max()) <= tol
+    assert float((cheap - plain).abs().max()) > tol
