@@ -97,6 +97,27 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                per call, the snapshots adopted when done and those the
                loose gate waited for; every kernel of the path must launch
                in both
+  8. imap_accuracy  iMAP* (SlamSystem(cfg, nice=False)) on
+               configs/Synthetic/synthetic_imap.yaml over configs/imap.yaml
+               (40 frames, the cut budgets in the YAML), writing its
+               checkpoints and final 128^3 mesh: ATE RMSE and the largest
+               per-frame error held to 1.5x the worst of JAX seeds 0-2, the
+               mesh's accuracy and completion to 1.5x and its completion
+               ratio to 0.67x the worst JAX seed
+               (scripts/port_jax_accuracy_bound.py --imap --recon); the last
+               checkpoint restored bit-equal.  The iMAP* path has no kernel
+               of rows 1-11 (its decoder is plain matmuls, as in the JAX
+               package): their counts must stay 0 through the run
+  9. imap_room0  configs/Replica/room0_imap.yaml over configs/imap.yaml at
+               its full width (680x1200, 5000 px x 50 tracking iterations,
+               5000 px x 300 mapping iterations as 3 outer x 100, 32 + 12
+               samples, hidden 256, the regulation on) on 7 frames of the
+               analytic scene inside room0's scaled bound, iters_first cut
+               to 300, no final color refine, one 256^3 mesh (no eval_rec
+               mesh), then one 680x1200 render_image: ms per tracked frame
+               (median and range), ms per normal mapping call, mesh
+               seconds, render ms, peak memory, and the ATE, gated only to
+               be finite
 Then the kernel table line {"kernels": [...]} (one entry per TPU kernel of
 the repository; launches from phase 5, the probes' from the roofline
 phase; the scatter's times from the real-index case), the card line, and last {"ok": true, "device": {...}}.  Any
@@ -139,6 +160,20 @@ REC_BOUND_COMPLETION_RATIO_PCT = 0.67 * 18.523999999999997
 # 0.019387 m, worst per-frame error 0.126280 m (both seed 2)
 LOOSE_BOUND_ATE_RMSE_M = 1.5 * 0.019387026506052316
 LOOSE_BOUND_MAX_ERR_M = 1.5 * 0.12628036737442017
+
+# 1.5x (ATE RMSE, largest per-frame error, mesh accuracy and completion)
+# and 0.67x (completion ratio) the worst of seeds 0-2 of the JAX package's
+# iMAP* on configs/Synthetic/synthetic_imap.yaml, final 128^3 mesh against
+# the analytic scene (JAX_PLATFORMS=cpu python
+# scripts/port_jax_accuracy_bound.py --imap --config
+# configs/Synthetic/synthetic_imap.yaml --recon --seeds 0 1 2): worst ATE
+# RMSE 0.011763 m and per-frame error 0.052457 m (seed 0), worst accuracy
+# 9.869530 cm, completion 51.493614 cm and ratio 15.3175 % (seed 1)
+IMAP_BOUND_ATE_RMSE_M = 1.5 * 0.011762763482403616
+IMAP_BOUND_MAX_ERR_M = 1.5 * 0.05245661363005638
+IMAP_BOUND_ACCURACY_CM = 1.5 * 9.86952977686645
+IMAP_BOUND_COMPLETION_CM = 1.5 * 51.49361388315506
+IMAP_BOUND_COMPLETION_RATIO_PCT = 0.67 * 15.3175
 
 # room0 under loose, held to this multiple of the same run's strict room0
 # ATE RMSE and largest per-frame error: the JAX package has no room0 loose
@@ -942,11 +977,12 @@ def phase_roofline() -> dict:
         raise AssertionError(f'probes not launched: {launches}')
     return res
 
-def run_slam(cfg: dict, output: str, mesh: bool = True):
+def run_slam(cfg: dict, output: str, mesh: bool = True, nice: bool = True):
     """One SlamSystem run on the card with every kernel's count set to 0
-    just before and read just after; every kernel of the path must have
-    launched (the fused MLP only runs in meshes).  Returns (result, the
-    system)."""
+    just before and read just after; every kernel of the NICE path must
+    have launched (the fused MLP only runs in meshes), and none in iMAP*
+    mode (nice=False), whose path has no kernel of rows 1-11.  Returns
+    (result, the system)."""
     import numpy as np
     import torch
     from nice_slam_tpu_torch.engine.slam import SlamSystem
@@ -959,14 +995,14 @@ def run_slam(cfg: dict, output: str, mesh: bool = True):
     for mod in (ex, fm, ga):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
-    slam = SlamSystem(cfg, device='cuda', seed=0, output=output)
+    slam = SlamSystem(cfg, nice=nice, device='cuda', seed=0, output=output)
     if not mesh:
         slam.mesher = None
     slam.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**ex.LAUNCHES, **ga.LAUNCHES,
-                **(fm.LAUNCHES if mesh else {})}
+                **(fm.LAUNCHES if mesh or not nice else {})}
     est, gt = slam.estimate_c2w, slam.gt_c2w
     if not np.isfinite(est).all():
         raise AssertionError('non-finite pose estimate')
@@ -974,6 +1010,7 @@ def run_slam(cfg: dict, output: str, mesh: bool = True):
     ate = evaluate_ate(est, gt)
     tracked = [s * 1e3 for idx, s in slam.timers.track if idx > 0]
     res = {
+        'method': 'nice' if nice else 'imap',
         'frames': int(slam.n_img), 'wall_s': wall,
         'ate_rmse_m': ate['absolute_translational_error.rmse'],
         'max_frame_err_m': float(err.max()),
@@ -990,8 +1027,11 @@ def run_slam(cfg: dict, output: str, mesh: bool = True):
         'sync_method': slam.sync_method, 'refreshes': dict(slam.refreshes),
         'launches': launches,
     }
-    if min(launches.values()) == 0:
+    if nice and min(launches.values()) == 0:
         raise AssertionError(f'kernels not launched: {launches}')
+    if not nice and max(launches.values()) != 0:
+        raise AssertionError(f'the iMAP* path launched NICE kernels: '
+                             f'{launches}')
     return res, slam
 
 
@@ -1005,7 +1045,7 @@ def mesh_vertices(path: str) -> int:
     return len(verts)
 
 
-def check_restore(cfg: dict, slam, output: str) -> None:
+def check_restore(cfg: dict, slam, output: str, nice: bool = True) -> None:
     """The last checkpoint, restored into a fresh SlamSystem, gives the
     run's grids, decoders and poses bit for bit."""
     import numpy as np
@@ -1017,7 +1057,8 @@ def check_restore(cfg: dict, slam, output: str) -> None:
     if path is None:
         raise AssertionError('no checkpoint was written')
     with tempfile.TemporaryDirectory() as other:
-        fresh = SlamSystem(cfg, device='cuda', seed=1, output=other)
+        fresh = SlamSystem(cfg, nice=nice, device='cuda', seed=1,
+                           output=other)
         nxt = fresh.restore(load_checkpoint(path))
     if nxt != slam.n_img:
         raise AssertionError(f'restore resumes at {nxt}, not {slam.n_img}')
@@ -1030,7 +1071,8 @@ def check_restore(cfg: dict, slam, output: str) -> None:
             raise AssertionError(f'restored decoder {key} differs')
     if not np.array_equal(fresh.estimate_c2w, slam.estimate_c2w):
         raise AssertionError('restored poses differ')
-    emit({'phase': 'restore', 'checkpoint': os.path.basename(path),
+    emit({'phase': 'restore', 'method': 'nice' if nice else 'imap',
+          'checkpoint': os.path.basename(path),
           'bytes': os.path.getsize(path), 'bit_equal': True})
 
 
@@ -1228,6 +1270,119 @@ def phase_overlap(strict_room0: dict) -> dict:
     return room0
 
 
+def phase_imap_accuracy() -> None:
+    """iMAP* on synthetic_imap.yaml, held to the JAX package's seeds."""
+    from nice_slam_tpu_torch.eval.recon import calc_3d_metric
+    from nice_slam_tpu_torch.io.datasets import synthetic_gt_mesh
+    from nice_slam_tpu_torch.mesh.mesher import load_ply
+    from nice_slam_tpu_torch.utils.config import load_config
+    cfg = load_config('configs/Synthetic/synthetic_imap.yaml',
+                      'configs/imap.yaml')
+    cfg['verbose'] = False
+    with tempfile.TemporaryDirectory() as out:
+        res, slam = run_slam(cfg, out, nice=False)
+        mesh_path = os.path.join(out, 'mesh', 'final_mesh.ply')
+        res['mesh_vertices'] = mesh_vertices(mesh_path)
+        rec_v, rec_t = load_ply(mesh_path)
+        gt_v, gt_t = synthetic_gt_mesh(cfg['synthetic']['box'])
+        res['recon'] = calc_3d_metric(rec_v, rec_t, gt_v, gt_t, align=False)
+        res.update(phase='imap_accuracy',
+                   config='configs/Synthetic/synthetic_imap.yaml',
+                   mesh_resolution=slam.mesher.cfg.resolution,
+                   level_set=slam.mesher.cfg.level_set,
+                   bound_ate_rmse_m=IMAP_BOUND_ATE_RMSE_M,
+                   bound_max_frame_err_m=IMAP_BOUND_MAX_ERR_M,
+                   bound_accuracy_cm=IMAP_BOUND_ACCURACY_CM,
+                   bound_completion_cm=IMAP_BOUND_COMPLETION_CM,
+                   bound_completion_ratio_pct=IMAP_BOUND_COMPLETION_RATIO_PCT)
+        emit(res)
+        if not (res['ate_rmse_m'] <= IMAP_BOUND_ATE_RMSE_M
+                and res['max_frame_err_m'] <= IMAP_BOUND_MAX_ERR_M):
+            raise AssertionError('iMAP* synthetic accuracy outside the JAX '
+                                 'bound')
+        rec = res['recon']
+        if not (rec['accuracy_cm'] <= IMAP_BOUND_ACCURACY_CM
+                and rec['completion_cm'] <= IMAP_BOUND_COMPLETION_CM
+                and rec['completion_ratio_%']
+                >= IMAP_BOUND_COMPLETION_RATIO_PCT):
+            raise AssertionError('iMAP* synthetic reconstruction outside the '
+                                 'JAX bound')
+        check_restore(cfg, slam, out, nice=False)
+
+
+def imap_room0_cfg() -> dict:
+    """room0_imap.yaml over imap.yaml on the analytic scene at room0's
+    intrinsics and frame size, its box inside room0's bound after imap's
+    scale 0.1; depth cut to 7 frames (the first map and normal mapping
+    calls at frames 5 and 6), iters_first to 300, the last frame's color
+    refine (5 x 300 iterations on a window of 10) and the eval_rec mesh
+    left out."""
+    from nice_slam_tpu_torch.utils.config import load_config
+    cfg = load_config('configs/Replica/room0_imap.yaml', 'configs/imap.yaml')
+    box = [[-2.8, 8.8], [-3.1, 5.4], [-3.4, 3.2]]
+    for (lo, hi), (blo, bhi) in zip(box, cfg['mapping']['bound']):
+        if not blo < lo < hi < bhi:
+            raise AssertionError('the scene box is not inside room0\'s '
+                                 'bound')
+    cfg['dataset'] = 'synthetic'
+    cfg['synthetic'] = {'n_frames': 7, 'radius': 0.8, 'step': 0.02,
+                        'noise': 0.003, 'box': box}
+    cfg['mapping']['iters_first'] = 300
+    cfg['mapping']['color_refine'] = False
+    cfg['meshing']['eval_rec'] = False
+    cfg['verbose'] = False
+    return cfg
+
+
+def phase_imap_room0() -> None:
+    """iMAP* at room0_imap's full width: times, one mesh, one render."""
+    import numpy as np
+    import torch
+    from nice_slam_tpu_torch.render.renderer import render_image
+    cfg = imap_room0_cfg()
+    with tempfile.TemporaryDirectory() as out:
+        res, slam = run_slam(cfg, out, nice=False)
+        res['mesh_vertices'] = mesh_vertices(
+            os.path.join(out, 'mesh', 'final_mesh.ply'))
+        idx = slam.n_img - 1
+        _, _, depth_np, _ = slam.frame_reader[idx]
+        c2w = torch.as_tensor(slam.estimate_c2w[idx], device='cuda')
+        gt_depth = torch.as_tensor(depth_np, dtype=torch.float32,
+                                   device='cuda')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        depth, _, color = render_image(
+            slam.decoders, slam.grids, c2w, slam.intr, stage='color',
+            model=slam.model, rcfg=slam.rcfg, gt_depth=gt_depth)
+        torch.cuda.synchronize()
+        render_ms = (time.perf_counter() - t0) * 1e3
+        render_peak = int(torch.cuda.max_memory_allocated())
+        finite_render = bool(torch.isfinite(depth).all()
+                             and torch.isfinite(color).all())
+    tracked = [s * 1e3 for idx, s in slam.timers.track if idx > 0]
+    normal = [r['ms'] for r in res['map_calls_ms'] if r['kind'] == 'normal']
+    rc, tc = slam.rcfg, slam.tcfg
+    res.update(
+        phase='imap_room0', config='configs/Replica/room0_imap.yaml',
+        dataset='synthetic', size=[slam.intr.H, slam.intr.W],
+        tracking=f'{tc.pixels} px x {tc.iters} iters',
+        mapping=f'{slam.mcfg.pixels} px x {slam.mcfg.iters} iters '
+                f'(3 outer), iters_first {slam.mcfg.iters_first}',
+        samples=f'{rc.n_samples} + {rc.n_importance} importance',
+        hidden=slam.dcfg.imap_hidden,
+        track_ms_range=[min(tracked), max(tracked)],
+        map_normal_ms=normal,
+        mesh_resolution=slam.mesher.cfg.resolution,
+        render_ms=render_ms, render_peak_mem_bytes=render_peak)
+    emit(res)
+    if not (np.isfinite(res['ate_rmse_m']) and finite_render):
+        raise AssertionError('iMAP* room0 gave non-finite results')
+    if not normal or res['mesh_resolution'] != 256:
+        raise AssertionError('iMAP* room0 made no normal mapping call or '
+                             'did not mesh at 256^3')
+
+
 def _entry(row, name, source, replaces, launches, err, ms, plain_ms,
            bound_ms, library_ms, shape, bound_by='bytes', **extra):
     return {'row': row, 'name': name, 'route': 'cuda',
@@ -1420,6 +1575,10 @@ def main(argv=None) -> int:
         lap('real_index')
         phase_overlap(room0)
         lap('overlap')
+        phase_imap_accuracy()
+        lap('imap_accuracy')
+        phase_imap_room0()
+        lap('imap_room0')
         if any(k in sys.modules for k in ('jax', 'nice_slam_tpu')):
             raise AssertionError('the JAX package was imported')
     except Exception:

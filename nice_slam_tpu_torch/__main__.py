@@ -1,10 +1,12 @@
 """Command line: run the port's SLAM on a config and report the ATE.
 
     python -m nice_slam_tpu_torch configs/Synthetic/synthetic.yaml \
-        [--output DIR] [--resume] [--device cpu] [--seed N]
+        [--nice | --imap] [--output DIR] [--resume] [--device cpu] [--seed N]
 
-The scene config layers over configs/nice_slam.yaml (paths relative to the
-working directory, as for run.py).  Runs on CUDA unless `--device cpu` is
+`--nice` (the default) and `--imap` pick the method, NICE-SLAM or iMAP*,
+and the base config the scene config layers over: configs/nice_slam.yaml
+or configs/imap.yaml (paths relative to the working directory, as for
+run.py).  Runs on CUDA unless `--device cpu` is
 given.  The run's output directory is --output, else the config's
 `data.output`: checkpoints go to `ckpts/`, meshes to `mesh/`, one line per
 frame to `metrics.jsonl`, and at the end trajectory.npz (estimated and
@@ -21,8 +23,14 @@ import os
 
 def main() -> None:
     parser = argparse.ArgumentParser(
-        description='nice_slam_tpu_torch: NICE-SLAM on PyTorch/CUDA')
+        description='nice_slam_tpu_torch: NICE-SLAM and iMAP* on '
+        'PyTorch/CUDA')
     parser.add_argument('config', type=str, help='path to scene config')
+    group = parser.add_mutually_exclusive_group()
+    group.add_argument('--nice', action='store_true', default=True,
+                       help='NICE-SLAM (the default)')
+    group.add_argument('--imap', dest='nice', action='store_false',
+                       help='iMAP*')
     parser.add_argument('--output', type=str, default=None,
                         help="the run's output directory (default: the "
                              "config's data.output)")
@@ -41,9 +49,10 @@ def main() -> None:
         latest_checkpoint, load_checkpoint)
     from nice_slam_tpu_torch.utils.config import load_config
 
-    cfg = load_config(args.config, 'configs/nice_slam.yaml')
-    slam = SlamSystem(cfg, device=args.device, seed=args.seed,
-                      output=args.output)
+    default = 'configs/nice_slam.yaml' if args.nice else 'configs/imap.yaml'
+    cfg = load_config(args.config, default)
+    slam = SlamSystem(cfg, nice=args.nice, device=args.device,
+                      seed=args.seed, output=args.output)
     print(f'INFO: running on {slam.device}; output folder is {slam.output}')
     start = 0
     if args.resume:

@@ -1,5 +1,5 @@
 """Mapping (L3): joint grid / decoder / pose optimization; port of
-`nice_slam_tpu/engine/mapper.py` (NICE, one device).
+`nice_slam_tpu/engine/mapper.py` (NICE and iMAP*, one device).
 
 Each iteration draws pixels from every frame of the keyframe window, renders
 the stage the schedule picks (middle -> fine -> color by iteration
@@ -12,6 +12,11 @@ state lives for one mapping call.
 The volumes are corner-expanded inside every iteration (the grids change
 under Adam): the expansion is the `ops/expand.py` kernel and its backward
 the fold kernel.
+
+iMAP* has no volumes: every iteration renders like the color stage, with
+no bounding-box mask, at the rate `imap_decoders_lr` decayed by StepLR(200,
+0.8), and adds the free-space regulation 0.0005 * sum |sigma| over
+densities drawn in [0, 0.85 d] for every window frame.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from nice_slam_tpu_torch.core.cameras import (
 from nice_slam_tpu_torch.core.sampling import ray_bound_exit
 from nice_slam_tpu_torch.models.grids import prepare_grids
 from nice_slam_tpu_torch.render.renderer import (
-    RenderConfig, SceneModel, render_rays)
+    RenderConfig, SceneModel, regulation_sigma_batched, render_rays)
 from nice_slam_tpu_torch.utils.optim import MaskedAdam
 
 # learning-rate table columns
@@ -63,13 +68,19 @@ class MapperConfig(NamedTuple):
     keyframe_selection: str = 'overlap'  # 'overlap' | 'global'
     color_refine: bool = True
     stage_lr: tuple = ()    # ((stage, (dec, coarse, mid, fine, color)), ...)
+    imap_decoders_lr: float = 0.0002
     middle_decoder_lr: float = 0.005
     coarse_mapper: bool = False
 
 
-def stage_schedule(mcfg: MapperConfig, n_iters: int) -> np.ndarray:
-    """Per-iteration stage indices into STAGE_ORDER."""
+def stage_schedule(mcfg: MapperConfig, n_iters: int, nice: bool = True
+                   ) -> np.ndarray:
+    """Per-iteration stage indices into STAGE_ORDER (iMAP*: always the
+    color stage)."""
     idx = np.zeros((n_iters,), dtype=np.int32)
+    if not nice:
+        idx[:] = 3
+        return idx
     if mcfg.coarse_mapper:
         return idx
     for it in range(n_iters):
@@ -83,11 +94,19 @@ def stage_schedule(mcfg: MapperConfig, n_iters: int) -> np.ndarray:
 
 
 def lr_table(mcfg: MapperConfig, n_iters: int, lr_factor: float,
-             ba_active: bool) -> np.ndarray:
-    """[n_iters, 7] learning rates: the stage's rates scaled by lr_factor;
-    the camera rate only in the color stage with BA active; the middle
-    decoder's rate only in the middle stage."""
+             ba_active: bool, nice: bool = True) -> np.ndarray:
+    """[n_iters, 7] learning rates.  NICE: the stage's rates scaled by
+    lr_factor; the camera rate only in the color stage with BA active; the
+    middle decoder's rate only in the middle stage.  iMAP*: the decoder's
+    rate imap_decoders_lr x 0.8^(it // 200) (StepLR), not scaled by
+    lr_factor, and the camera rate with BA active."""
     table = np.zeros((n_iters, 7), dtype=np.float32)
+    if not nice:
+        steps = np.arange(n_iters) // 200
+        table[:, LR_DECODERS] = mcfg.imap_decoders_lr * (0.8 ** steps)
+        if ba_active:
+            table[:, LR_CAM] = mcfg.ba_cam_lr
+        return table
     stages = dict(mcfg.stage_lr)
     for it, s_idx in enumerate(stage_schedule(mcfg, n_iters)):
         s = STAGE_ORDER[s_idx]
@@ -153,17 +172,21 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
              mcfg: MapperConfig, intr: Intrinsics, pix_per_frame: int,
              draws: Sequence[tuple[torch.Tensor, torch.Tensor]]
              | None = None,
+             reg_jitter: Sequence[torch.Tensor] | None = None,
              generator: torch.Generator | None = None):
     """One mapping call: len(lr_tab) iterations with one Adam state.
 
-    grids: {name: flat [M, C] leaf tensor}, updated in place; the decoders
-    named in `trainable` are updated in place too.  cams: [F, 7] window
-    poses; cam_mask: [F] 0/1 trainable-pose mask, or None when the poses
-    are constants (no BA).  masks: {name: [M, 1] 0/1} frustum masks or None.
-    draws: optional per-iteration (i, j) [F, P] pixel indices; without them
-    each iteration draws from `generator`.
+    grids: {name: flat [M, C] leaf tensor} ({} for iMAP*), updated in
+    place; the decoders named in `trainable` are updated in place too.
+    cams: [F, 7] window poses; cam_mask: [F] 0/1 trainable-pose mask, or
+    None when the poses are constants (no BA).  masks: {name: [M, 1] 0/1}
+    frustum masks or None.  draws: optional per-iteration (i, j) [F, P]
+    pixel indices; reg_jitter: optional per-iteration [F, P, n_samples]
+    uniforms of the regulation's jitter (density compositing only);
+    without them each iteration draws from `generator`.
     Returns (cams [F, 7] after the call, losses [n_iters]).
     """
+    nice = model.kind == 'nice'
     n_frames = cams.shape[0]
     names = list(grids)
     cams = cams.detach().clone().requires_grad_(cam_mask is not None)
@@ -188,14 +211,24 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
                                       generator=generator,
                                       device=cams.device)
         o, d, dgt, cgt = window_rays(cams, colors, depths, i, j, intr)
-        # bbox prefilter as a mask; the far clamp takes the maximum over
-        # the whole window's (filtered) depths
-        inside = ray_bound_exit(o.detach(), d.detach(), model.bound) >= dgt
+        # bbox prefilter (NICE) as a mask; the far clamp takes the maximum
+        # over the whole window's (filtered) depths
+        if nice:
+            inside = ray_bound_exit(o.detach(), d.detach(),
+                                    model.bound) >= dgt
+        else:
+            inside = torch.ones_like(dgt, dtype=torch.bool)
         d_render = torch.where(inside, dgt, torch.zeros_like(dgt))
         d_max = torch.amax(d_render)
         use_depth = stage != 'coarse'
         # rebuilt every iteration; backward = the fold
-        exp = prepare_grids(grids, model.grid_shapes, stage=stage)
+        exp = (prepare_grids(grids, model.grid_shapes, stage=stage) if nice
+               else grids)
+        jitter = None
+        if not rcfg.occupancy:
+            jitter = (reg_jitter[it] if reg_jitter is not None else
+                      torch.rand((n_frames, pix_per_frame, rcfg.n_samples),
+                                 generator=generator, device=cams.device))
 
         grads, loss = None, 0.0
         n_rays = frames_per_group * pix_per_frame
@@ -213,6 +246,15 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
                 col = torch.abs(cgt[sl] - color)
                 loss_g = loss_g + mcfg.w_color_loss * torch.sum(
                     torch.where(inside[sl, None], col, torch.zeros_like(col)))
+            if jitter is not None:
+                # the free-space regulation over this group's frames
+                fs = slice(g * frames_per_group, (g + 1) * frames_per_group)
+                shape = (frames_per_group, pix_per_frame)
+                sigma = regulation_sigma_batched(
+                    decoders, exp, o[sl].reshape(shape + (3,)),
+                    d[sl].reshape(shape + (3,)), d_render[sl].reshape(shape),
+                    model=model, rcfg=rcfg, t_rand=jitter[fs], stage=stage)
+                loss_g = loss_g + 0.0005 * torch.sum(torch.abs(sigma))
             g_grads = torch.autograd.grad(loss_g, leaves, allow_unused=True,
                                           retain_graph=g < groups - 1)
             grads = g_grads if grads is None else [

@@ -1,9 +1,14 @@
 """Single-controller SLAM orchestrator (L4); port of
-`nice_slam_tpu/engine/slam.py` (NICE mode, one device):
+`nice_slam_tpu/engine/slam.py` (NICE and iMAP* modes, one device):
 
     map(0, iters_first) [+ coarse map]; then for every frame idx >= 1:
         track(idx); if idx % map_cadence == 0 or idx is the last frame:
             [coarse map(idx)]; map(idx)   (the last one a color refine)
+
+iMAP* (`SlamSystem(cfg, nice=False)`) has one decoder and no volumes, no
+coarse mapper and no frustum masks; each normal mapping call is 3 outer
+iterations of `iters // 3`, each on a window selected anew, the keyframe
+appended on the last.
 
 `sync_method: strict` (the default) maps every `every_frame` frames and
 runs everything in that order.  `loose` and `free` are the overlapped
@@ -35,8 +40,11 @@ Services after each mapped frame, as in the JAX package: a checkpoint
 every `ckpt_freq` frames and at the last frame (`<output>/ckpts/`), a mesh
 every `mesh_freq` frames (on a background thread when `meshing.async`), the
 final mesh and, with `meshing.eval_rec`, the evaluation mesh
-(`<output>/mesh/`); one line per frame in `<output>/metrics.jsonl`.
-Visualization is not ported yet.
+(`<output>/mesh/`); one line per frame in `<output>/metrics.jsonl`; with
+`mapping.save_selected_keyframes_info`, the window of every mapping call
+(`selected_keyframes`, checkpointed).  Visualization is not ported yet:
+`utils/config.check_options` warns about its keys, and refuses the
+options of modules that are not ported.
 """
 
 from __future__ import annotations
@@ -65,7 +73,8 @@ from nice_slam_tpu_torch.engine.tracker import const_speed_init, track_frame
 from nice_slam_tpu_torch.io.datasets import get_dataset
 from nice_slam_tpu_torch.io.prefetch import Prefetcher
 from nice_slam_tpu_torch.mesh.mesher import Mesher
-from nice_slam_tpu_torch.models.decoders import init_nice_decoders
+from nice_slam_tpu_torch.models.decoders import (
+    init_imap_decoder, init_nice_decoders)
 from nice_slam_tpu_torch.models.grids import (
     grid_world_coords, init_grids, prepare_grids, static_grid_shapes)
 from nice_slam_tpu_torch.ops.trilinear import ExpandedGrid
@@ -144,11 +153,13 @@ _MAP_SEED_OFFSET = 7919
 
 
 class SlamSystem:
-    """Owns all SLAM state and drives the schedule of `sync_method` (NICE
-    mode)."""
+    """Owns all SLAM state and drives the schedule of `sync_method`, in NICE
+    mode or (nice=False) iMAP* mode."""
 
-    def __init__(self, cfg: dict, *, device=None, seed: int = 0,
-                 verbose: bool | None = None, output: str | None = None):
+    def __init__(self, cfg: dict, *, nice: bool = True, device=None,
+                 seed: int = 0, verbose: bool | None = None,
+                 output: str | None = None):
+        cfgutil.check_options(cfg)
         self.device = resolve_device(device)
         # true f32 matmuls: reduced-precision passes destabilize the pose
         # optimization over long sequences (the JAX package pins the same)
@@ -169,7 +180,15 @@ class SlamSystem:
         self.gcfg = cfgutil.grid_config_from_cfg(cfg)
         self.tcfg = cfgutil.tracker_config_from_cfg(cfg)
         self.mcfg = cfgutil.mapper_config_from_cfg(cfg)
-        self.coarse_enabled = bool(cfg['coarse'])
+        # the method lives in model.kind alone (`self.nice` reads it)
+        self.model = SceneModel(
+            decoder=self.dcfg,
+            bound=torch.tensor(self.gcfg.bound_np, device=self.device),
+            coarse_bound=(torch.tensor(self.gcfg.coarse_bound_np,
+                                       device=self.device) if nice else None),
+            grid_shapes=static_grid_shapes(self.gcfg) if nice else (),
+            kind='nice' if nice else 'imap')
+        self.coarse_enabled = bool(cfg['coarse']) and self.nice
         if self.coarse_enabled:
             self.coarse_mcfg = cfgutil.mapper_config_from_cfg(
                 cfg, coarse_mapper=True)
@@ -187,6 +206,11 @@ class SlamSystem:
         self.mesh_async = bool(cfg.get('meshing', {}).get('async', True))
         self.check_invariants = bool(
             cfg.get('debug', {}).get('check_invariants', False))
+        self.save_selected_keyframes = bool(
+            m.get('save_selected_keyframes_info', False))
+        # frame -> the window of its last mapping call: [{'idx', 'gt_c2w',
+        # 'est_c2w'}, ...], selected keyframes then the current frame
+        self.selected_keyframes: dict[int, list] = {}
         self._mesh_pool = None
         self._mesh_future = None
         self.sync_method = cfg.get('sync_method', 'strict')
@@ -206,11 +230,6 @@ class SlamSystem:
             self.sync_method = 'loose'
 
         dev = self.device
-        self.model = SceneModel(
-            decoder=self.dcfg,
-            bound=torch.tensor(self.gcfg.bound_np, device=dev),
-            coarse_bound=torch.tensor(self.gcfg.coarse_bound_np, device=dev),
-            grid_shapes=static_grid_shapes(self.gcfg))
         # the initial grids and decoders are drawn on the CPU, so a seed
         # gives the same initial model on every device; pixel draws come
         # from a generator on the run's device
@@ -237,6 +256,44 @@ class SlamSystem:
         self._snapshot_idx = -1
         self.refreshes = {'consumed': 0, 'forced': 0}
 
+        if not self.nice:
+            # one decoder, no volumes
+            self.grids = {}
+            self.decoders = torch.nn.ModuleDict({'imap': init_imap_decoder(
+                self.dcfg, generator=init_gen, device='cpu')}).to(dev)
+            self.trainable = {'imap'}
+        else:
+            self._init_nice(cfg, init_gen)
+
+        self.frame_reader = get_dataset(cfg)
+        self.n_img = len(self.frame_reader)
+        self.estimate_c2w = np.zeros((self.n_img, 4, 4), dtype=np.float32)
+        self.gt_c2w = np.zeros((self.n_img, 4, 4), dtype=np.float32)
+        self.keyframes = KeyframeStore()
+        self.coarse_keyframes = KeyframeStore()
+        self._frames: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._grid_points = {
+            name: torch.tensor(
+                grid_world_coords(self.gcfg, name).reshape(-1, 3),
+                device=dev)
+            for name in self.grids}
+        # what the tracker renders against, kept until the next mapping
+        # commit: (decoders, color-stage expansion of the volumes)
+        self._tracking_grids = None
+        self.timers = PhaseTimers()
+        self.mapping_idx = -1
+        self.mesher = Mesher(cfgutil.mesher_config_from_cfg(cfg), self.model,
+                             self.intr, rcfg=self.rcfg)
+
+    @property
+    def nice(self) -> bool:
+        """NICE mode (else iMAP*), as the scene model's kind says."""
+        return self.model.kind == 'nice'
+
+    def _init_nice(self, cfg: dict, init_gen: torch.Generator) -> None:
+        """The volumes, the NICE decoders (pretrained ones when their files
+        exist) and the set of decoders the mapper trains."""
+        dev = self.device
         self.grids = {
             name: g.to(dev).requires_grad_(True)
             for name, g in init_grids(self.gcfg, generator=init_gen,
@@ -263,28 +320,8 @@ class SlamSystem:
                     'mapping.train_middle=True with pretrained decoders '
                     'loaded: the pretrained middle MLP will be perturbed '
                     'during mapping (the reference never trains it)',
-                    UserWarning, stacklevel=2)
+                    UserWarning, stacklevel=3)
             self.trainable.add('middle')
-
-        self.frame_reader = get_dataset(cfg)
-        self.n_img = len(self.frame_reader)
-        self.estimate_c2w = np.zeros((self.n_img, 4, 4), dtype=np.float32)
-        self.gt_c2w = np.zeros((self.n_img, 4, 4), dtype=np.float32)
-        self.keyframes = KeyframeStore()
-        self.coarse_keyframes = KeyframeStore()
-        self._frames: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-        self._grid_points = {
-            name: torch.tensor(
-                grid_world_coords(self.gcfg, name).reshape(-1, 3),
-                device=dev)
-            for name in self.grids}
-        # what the tracker renders against, kept until the next mapping
-        # commit: (decoders, color-stage expansion of the volumes)
-        self._tracking_grids = None
-        self.timers = PhaseTimers()
-        self.mapping_idx = -1
-        self.mesher = Mesher(cfgutil.mesher_config_from_cfg(cfg), self.model,
-                             self.intr, rcfg=self.rcfg)
 
     # ------------------------------------------------------------------
     # helpers
@@ -315,8 +352,8 @@ class SlamSystem:
         map.  The overlapped modes clone the decoders: the next mapping
         round updates them in place while the tracker renders."""
         with torch.no_grad():
-            grids = prepare_grids(self.grids, self.model.grid_shapes,
-                                  stage='color')
+            grids = (prepare_grids(self.grids, self.model.grid_shapes,
+                                   stage='color') if self.nice else {})
             decoders = (copy.deepcopy(self.decoders) if self._overlap
                         else self.decoders)
         return decoders, grids
@@ -452,10 +489,12 @@ class SlamSystem:
                   and not coarse and not first)
         window_size = mcfg.window_size
         fix_color = mcfg.fix_color
-        frustum_on = mcfg.frustum_selection
+        frustum_on = mcfg.frustum_selection and self.nice
         middle_ratio, fine_ratio = mcfg.middle_iter_ratio, mcfg.fine_iter_ratio
         lr_factor = mcfg.lr_factor
-        outer_iters, n_iters = 1, mcfg.iters
+        # iMAP*: a normal call is 3 outer iterations, each on a new window
+        outer_iters = 1 if self.nice else 3
+        n_iters = mcfg.iters // outer_iters
         if refine:
             outer_iters = 5
             window_size = mcfg.window_size * 2
@@ -464,6 +503,7 @@ class SlamSystem:
             fix_color = True
             frustum_on = False
         elif first:
+            outer_iters = 1
             n_iters = mcfg.iters_first
             lr_factor = mcfg.lr_first_factor
         mcfg_eff = mcfg._replace(middle_iter_ratio=middle_ratio,
@@ -476,6 +516,14 @@ class SlamSystem:
             ba = len(store) > 4 and mcfg.ba and not coarse
             sel, oldest = self._select_window(store, mcfg_eff, window_size,
                                               depth_np, cur_c2w)
+            if self.save_selected_keyframes and not coarse:
+                self.selected_keyframes[idx] = [
+                    {'idx': store.frames[p].idx,
+                     'gt_c2w': store.frames[p].gt_c2w,
+                     'est_c2w': store.frames[p].est_c2w.copy()}
+                    for p in sel] + [{'idx': idx,
+                                      'gt_c2w': np.asarray(gt_c2w_np),
+                                      'est_c2w': cur_c2w.copy()}]
             colors, depths, cam7s, cam_mask = [], [], [], []
             for pos in sel:
                 kf = store.frames[pos]
@@ -506,8 +554,9 @@ class SlamSystem:
                        if frustum_on else None),
                 cam_mask=(torch.tensor(cam_mask, device=self.device)
                           if ba else None),
-                lr_tab=lr_table(mcfg_eff, n_iters, lr_factor, ba),
-                stage_idx=stage_schedule(mcfg_eff, n_iters),
+                lr_tab=lr_table(mcfg_eff, n_iters, lr_factor, ba,
+                                nice=self.nice),
+                stage_idx=stage_schedule(mcfg_eff, n_iters, nice=self.nice),
                 colors=torch.stack(colors), depths=torch.stack(depths),
                 model=self.model, rcfg=self.rcfg, mcfg=mcfg_eff,
                 intr=self.intr,
@@ -624,6 +673,8 @@ class SlamSystem:
             'coarse_keyframes': [{'idx': kf.idx, 'est_c2w': kf.est_c2w}
                                  for kf in self.coarse_keyframes.frames],
             'mapping_idx': self.mapping_idx,
+            'selected_keyframes': (self.selected_keyframes
+                                   if self.save_selected_keyframes else None),
             'generator_state': self.generator.get_state(),
             'np_rng_state': self.np_rng.bit_generator.state,
         }
@@ -669,6 +720,8 @@ class SlamSystem:
                       gt_c2w=by_idx[kf['idx']].gt_c2w)
              for kf in state.get('coarse_keyframes', [])])
         self.mapping_idx = int(state['mapping_idx'])
+        if state.get('selected_keyframes'):
+            self.selected_keyframes = dict(state['selected_keyframes'])
         self.generator.set_state(torch.as_tensor(state['generator_state']))
         if 'map_generator_state' in state \
                 and self.map_generator is not self.generator:

@@ -5,8 +5,9 @@ draws pixels away from the image edge, renders the color stage at the
 current pose, and minimizes |d_gt - d| / sqrt(var) (with dynamic-pixel
 rejection, residual < 10x median) plus a weighted color term.  A fresh Adam
 state per frame; the kept pose is the post-step tensor of the lowest-loss
-step.  Rays whose bbox exit lies before the sensor depth keep their slot
-and are masked, so shapes stay fixed.
+step.  NICE: rays whose bbox exit lies before the sensor depth keep their
+slot and are masked, so shapes stay fixed; iMAP* has no such prefilter and
+no volumes.
 """
 
 from __future__ import annotations
@@ -55,9 +56,12 @@ def tracking_loss(cam7: torch.Tensor, decoders: Mapping[str, nn.Module],
     d_gt = gather_pixels(gt_depth, i, j)
     c_gt = gather_pixels(gt_color, i, j)
 
-    # bbox prefilter as a mask
-    inside = ray_bound_exit(rays_o.detach(), rays_d.detach(),
-                            model.bound) >= d_gt
+    # bbox prefilter (NICE) as a mask
+    if model.kind == 'nice':
+        inside = ray_bound_exit(rays_o.detach(), rays_d.detach(),
+                                model.bound) >= d_gt
+    else:
+        inside = torch.ones_like(d_gt, dtype=torch.bool)
     # masked rays render with depth 0, so the batch statistics inside the
     # renderer (far clip, zero-depth sweep) see the filtered batch
     d_render = torch.where(inside, d_gt, torch.zeros_like(d_gt))
@@ -92,12 +96,13 @@ def track_frame(decoders: Mapping[str, nn.Module], grids: Mapping,
 
     grids: flat or already corner-expanded volumes (expanded here once when
     flat; the orchestrator passes the expansion it keeps between mapping
-    commits).  draws: optional per-iteration (i, j) pixel indices; without
-    them each iteration draws from `generator`.
+    commits); {} for iMAP*.  draws: optional per-iteration (i, j) pixel
+    indices; without them each iteration draws from `generator`.
     Returns (best_cam7 [7], last_cam7 [7], losses [iters]).
     """
-    with torch.no_grad():
-        grids = prepare_grids(grids, model.grid_shapes, stage='color')
+    if model.kind == 'nice':
+        with torch.no_grad():
+            grids = prepare_grids(grids, model.grid_shapes, stage='color')
     device = cam7_init.device
     quat = cam7_init[:4].detach().clone().requires_grad_(True)
     trans = cam7_init[4:].detach().clone().requires_grad_(True)

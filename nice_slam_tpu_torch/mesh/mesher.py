@@ -2,8 +2,9 @@
 device: the sharded lattice query is not ported).
 
   * lattice query: `resolution` points per axis over marching_cubes_bound
-    padded by 0.05; field = fine-stage occupancy; points outside the scene
-    hull forced to logit 100.
+    padded by 0.05; field = fine-stage occupancy (iMAP*: the color stage's
+    density, cut at the config's level_set); points outside the scene hull
+    forced to 100.
   * scene hull: scipy's convex hull of the back-projected keyframe depth
     and the camera centres, scaled by clean_mesh_bound_scale.
   * iso-surface: the native marching tetrahedra (mesh/native.py).
@@ -16,7 +17,8 @@ device: the sharded lattice query is not ported).
 
 The field and color queries run on the model's device in fixed-size
 chunks under `no_grad`, through the fused decoder-MLP kernel
-(`SceneModel.fused_eval`; ops/fused_mlp.py); hull, marching tetrahedra and
+(`SceneModel.fused_eval`; ops/fused_mlp.py) for NICE (iMAP*'s decoder has
+no grid features and takes the plain path); hull, marching tetrahedra and
 cleaning run on the host.  `Mesher.timings` holds the wall seconds of each
 piece of the last extraction (every device piece ends with its host copy).
 """
@@ -68,6 +70,8 @@ class Mesher:
         self._lattice = None
         self._dev_cache: dict[str, torch.Tensor] = {}
         self.timings: dict[str, float] = {}
+        # the stage whose last channel is the geometry
+        self.geo_stage = 'fine' if model.kind == 'nice' else 'color'
 
     @contextlib.contextmanager
     def _timed(self, piece: str):
@@ -244,7 +248,7 @@ class Mesher:
             with self._timed('query_s'):
                 if seen.any():
                     z[seen] = self.eval_field(decoders, grids, points[seen],
-                                              'fine')
+                                              self.geo_stage)
                 if forecast.any():
                     z[forecast] = self.eval_field(
                         decoders, grids, points[forecast], 'coarse') + 0.2
@@ -256,7 +260,7 @@ class Mesher:
                 else:
                     inside = np.ones((len(points),), dtype=bool)
             with self._timed('query_s'):
-                z = self.eval_field(decoders, grids, points, 'fine',
+                z = self.eval_field(decoders, grids, points, self.geo_stage,
                                     cache='lattice')
             z[~inside] = 100.0
         res = cfg.resolution
@@ -307,10 +311,11 @@ class Mesher:
         show_forecast = (cfg.mesh_coarse_level if show_forecast is None
                          else show_forecast)
         self.timings = {}
-        with self._timed('expand_s'), torch.no_grad():
-            grids = prepare_grids(grids, self.model.grid_shapes)
-            if self.device.type == 'cuda':
-                torch.cuda.synchronize(self.device)
+        if self.model.kind == 'nice':
+            with self._timed('expand_s'), torch.no_grad():
+                grids = prepare_grids(grids, self.model.grid_shapes)
+                if self.device.type == 'cuda':
+                    torch.cuda.synchronize(self.device)
         field, seen = self.field(decoders, grids, keyframes,
                                  show_forecast=show_forecast)
         surf = self.surface(

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from nice_slam_tpu_torch.models.decoders import (
-    DecoderConfig, init_nice_decoders)
+    DecoderConfig, init_imap_decoder, init_nice_decoders)
 
 
 def _mlp_state(p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -36,9 +36,14 @@ def _mlp_state(p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def decoders_from_numpy(params_np: Mapping[str, Any], cfg: DecoderConfig
                         ) -> nn.ModuleDict:
-    """{'middle'|'fine'|'color'|'coarse': JAX MLP pytree as numpy} ->
-    the port's decoder ModuleDict holding the same weights."""
-    decs = init_nice_decoders(cfg, generator=None, device='cpu')
+    """{'middle'|'fine'|'color'|'coarse': JAX MLP pytree as numpy} (NICE),
+    or {'imap': the JAX iMAP* decoder pytree} -> the port's decoder
+    ModuleDict holding the same weights (the Fourier matrix included)."""
+    if 'imap' in params_np:
+        decs = nn.ModuleDict({'imap': init_imap_decoder(
+            cfg, generator=None, device='cpu')})
+    else:
+        decs = init_nice_decoders(cfg, generator=None, device='cpu')
     for name, p in params_np.items():
         state = _mlp_state(p)
         own = dict(decs[name].named_parameters())

@@ -1,5 +1,5 @@
 """Scene-representation decoders (L1); port of
-`nice_slam_tpu/models/decoders.py` (NICE only).
+`nice_slam_tpu/models/decoders.py`.
 
   * `MLP` (middle/fine/color): positional embedding -> n_blocks dense+ReLU
     layers, each followed by a grid-feature injection `h += fc_c[i](c)`,
@@ -8,9 +8,12 @@
   * `nice_eval`: coarse -> occ; middle -> occ; fine -> fine + middle occ
     (the middle feature enters the fine decoder with its gradient stopped);
     color -> rgb from the color decoder with occ from fine + middle.
+  * iMAP*: one `MLP` with no grid features (c_dim 0, no `fc_c`), hidden
+    `imap_hidden` (256), `imap_blocks` (4) blocks, no skips, 4 outputs
+    (r, g, b, density): `init_imap_decoder`, `imap_eval`.
   * `mlp_dispatch`: `MLP.forward`, or with `fused=True` the fused CUDA
     kernel of ops/fused_mlp.py (Fourier embedding with grid features only;
-    other configurations take `MLP.forward`).
+    other configurations, iMAP's among them, take `MLP.forward`).
 
 Module and parameter names follow the reference's torch decoders
 (`pts_linears.i`, `fc_c.i`, `output_linear`, `embedder._B`), so a pretrained
@@ -42,6 +45,9 @@ class DecoderConfig(NamedTuple):
     skips: tuple[int, ...] = (2,)
     pos_embedding_method: str = 'fourier'  # 'fourier' | 'nerf' | 'same'
     coarse: bool = True
+    # the iMAP* decoder
+    imap_hidden: int = 256
+    imap_blocks: int = 4
 
     def embed_dim(self, color: bool) -> int:
         if self.pos_embedding_method == 'fourier':
@@ -67,28 +73,34 @@ def _linear(in_dim: int, out_dim: int, gain: float,
 
 
 class MLP(nn.Module):
-    """Grid-feature decoder with positional embedding (middle/fine/color)."""
+    """Decoder with positional embedding: the grid-feature MLPs of NICE
+    (middle/fine/color) and, with c_dim 0 (no `fc_c`), iMAP's.  `hidden`,
+    `n_blocks` and `skips` default to the config's NICE sizes."""
 
     def __init__(self, cfg: DecoderConfig, *, c_dim: int, color: bool,
+                 hidden: int | None = None, n_blocks: int | None = None,
+                 skips: tuple[int, ...] | None = None,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         self.cfg = cfg
         self.color = color
-        self.skips = tuple(cfg.skips)
-        hidden = cfg.hidden_size
+        self.skips = tuple(cfg.skips if skips is None else skips)
+        hidden = cfg.hidden_size if hidden is None else hidden
+        n_blocks = cfg.n_blocks if n_blocks is None else n_blocks
         embed_dim = cfg.embed_dim(color)
         if cfg.pos_embedding_method == 'fourier':
             self.embedder = GaussianFourierFeatures(
                 generator=generator, device=device)
         layers, in_dim = [], embed_dim
-        for i in range(cfg.n_blocks):
+        for i in range(n_blocks):
             layers.append(_linear(in_dim, hidden, _RELU_GAIN, generator,
                                   device))
             in_dim = hidden + embed_dim if i in self.skips else hidden
         self.pts_linears = nn.ModuleList(layers)
-        self.fc_c = nn.ModuleList(
-            [_linear(c_dim, hidden, 1.0, generator, device)
-             for _ in range(cfg.n_blocks)])
+        if c_dim > 0:
+            self.fc_c = nn.ModuleList(
+                [_linear(c_dim, hidden, 1.0, generator, device)
+                 for _ in range(n_blocks)])
         self.output_linear = _linear(in_dim, 4 if color else 1, 1.0,
                                      generator, device)
 
@@ -103,20 +115,24 @@ class MLP(nn.Module):
                     else nerf_embed(p, 5, log_sampling=False))
         raise ValueError(method)
 
-    def forward(self, p: torch.Tensor, c_feat: torch.Tensor) -> torch.Tensor:
-        """p [N, 3] world points, c_feat [N, c_dim] -> [N, 4] if color
-        else [N]."""
+    def forward(self, p: torch.Tensor, c_feat: torch.Tensor | None
+                ) -> torch.Tensor:
+        """p [N, 3] world points, c_feat [N, c_dim] (None for c_dim 0) ->
+        [N, 4] if color else [N]."""
         embedded = self.embed(p)
-        # c_feat is the same for every block, so the per-block injections
-        # fc_c[i](c) are one wide matmul, sliced per block
-        w_all = torch.cat([l.weight for l in self.fc_c], dim=0)
-        b_all = torch.cat([l.bias for l in self.fc_c])
-        fc_all = F.linear(c_feat, w_all, b_all)
-        hidden = self.fc_c[0].out_features
+        fc_all = None
+        if c_feat is not None:
+            # c_feat is the same for every block, so the per-block
+            # injections fc_c[i](c) are one wide matmul, sliced per block
+            w_all = torch.cat([l.weight for l in self.fc_c], dim=0)
+            b_all = torch.cat([l.bias for l in self.fc_c])
+            fc_all = F.linear(c_feat, w_all, b_all)
+            hidden = self.fc_c[0].out_features
         h = embedded
         for i, layer in enumerate(self.pts_linears):
             h = F.relu(layer(h))
-            h = h + fc_all[:, i * hidden:(i + 1) * hidden]
+            if fc_all is not None:
+                h = h + fc_all[:, i * hidden:(i + 1) * hidden]
             if i in self.skips:
                 h = torch.cat([embedded, h], dim=-1)
         out = self.output_linear(h)
@@ -165,11 +181,29 @@ def init_nice_decoders(cfg: DecoderConfig, *, generator: torch.Generator,
     return nn.ModuleDict(decs)
 
 
+def init_imap_decoder(cfg: DecoderConfig, *, generator: torch.Generator,
+                      device) -> MLP:
+    """The iMAP* decoder: one MLP over the positional embedding, no grid
+    features, hidden `imap_hidden`, `imap_blocks` blocks, no skips, 4
+    outputs."""
+    return MLP(cfg, c_dim=0, color=True, hidden=cfg.imap_hidden,
+               n_blocks=cfg.imap_blocks, skips=(), generator=generator,
+               device=device)
+
+
+def imap_eval(decoder: MLP, p: torch.Tensor) -> torch.Tensor:
+    """The iMAP* decoder at world points [N, 3] -> [N, 4] (r, g, b,
+    density); always the plain path (the fused kernel needs grid
+    features)."""
+    return mlp_dispatch(decoder, p, None)
+
+
 def mlp_dispatch(mlp: MLP, p: torch.Tensor, c_feat: torch.Tensor | None,
                  *, fused: bool = False) -> torch.Tensor:
     """`mlp(p, c_feat)`, or the fused kernel when asked for and applicable
     (the Fourier-embedding MLP with grid features; the kernel takes
-    contiguous inputs, so the feature slices are made contiguous)."""
+    contiguous inputs, so the feature slices are made contiguous).  With no
+    grid features (iMAP*) it is always `mlp(p, None)`."""
     if (fused and mlp.cfg.pos_embedding_method == 'fourier'
             and c_feat is not None):
         return fused_mlp(mlp, p.contiguous(), c_feat.contiguous())

@@ -9,13 +9,15 @@ Saving writes a temporary file and renames it over the target, so a
 checkpoint on disk is always whole.
 
 Resume contract: with `compress_images: false` a resumed run replays the
-uninterrupted run's schedule and random draws exactly, and with PyTorch's
-deterministic algorithms on (`torch.use_deterministic_algorithms(True)`)
-its later poses, grids and decoders are bit-identical on the CPU.  Without
-them the mapper's gather backward (index_put_ with accumulate) adds in a
-thread-dependent order on the CPU and with atomics on CUDA, so two runs
-already differ in their last bits.  The mapper builds a new Adam state for
-every call, so there is no optimizer state to save.
+uninterrupted run's schedule and random draws exactly, and its later
+poses, grids and decoders are bit-identical on the CPU, with or without
+PyTorch's deterministic algorithms (the mapper's gather backward is
+index_add_ on the CPU and the ordered `scatter_add_rows` kernel on CUDA;
+tests/test_torch_ckpt.py).  iMAP* checkpoints hold the one decoder
+'imap' and no volumes; with `mapping.save_selected_keyframes_info` the
+window log `selected_keyframes` is saved and restored too.  The mapper
+builds a new Adam state for every call, so there is no optimizer state to
+save.
 """
 
 from __future__ import annotations

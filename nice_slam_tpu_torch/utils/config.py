@@ -5,11 +5,17 @@
 merge over an optional default file; the views build the static config
 tuples the engine takes.  The key schema is the reference's, so the JAX
 package's config tree loads unchanged.
+
+`HONOURED` and `UNPORTED_OPTIONS` account for every key the JAX package's
+SlamSystem and config readers read; `check_options` (called first by
+SlamSystem) warns about or refuses the unported ones, so no option of a
+config is ignored without a word.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 
 import yaml
 
@@ -20,6 +26,130 @@ from nice_slam_tpu_torch.mesh.mesher import MesherConfig
 from nice_slam_tpu_torch.models.decoders import DecoderConfig
 from nice_slam_tpu_torch.models.grids import GridConfig, round_bound
 from nice_slam_tpu_torch.render.renderer import RenderConfig
+
+
+# Keys (dotted paths; '*' stands for any key) that act here as in the JAX
+# package.
+HONOURED = frozenset({
+    'cam.H', 'cam.W', 'cam.fx', 'cam.fy', 'cam.cx', 'cam.cy',
+    'cam.crop_size', 'cam.crop_edge',
+    'grid_len.bound_divisible', 'grid_len.coarse', 'grid_len.middle',
+    'grid_len.fine', 'grid_len.color',
+    'model.c_dim', 'model.coarse_bound_enlarge',
+    'model.pos_embedding_method',
+    'rendering.N_samples', 'rendering.N_surface', 'rendering.N_importance',
+    'rendering.lindisp', 'rendering.perturb', 'rendering.grad_z',
+    'occupancy', 'coarse', 'scale', 'verbose', 'dataset',
+    'data.output', 'data.prefetch', 'data.prefetch_workers',
+    'pretrained_decoders.middle_fine', 'pretrained_decoders.coarse',
+    'sync_method', 'sync_force_free', 'ckpt.compress_images',
+    'debug.check_invariants',
+    'tracking.pixels', 'tracking.iters', 'tracking.lr',
+    'tracking.seperate_LR', 'tracking.w_color_loss',
+    'tracking.use_color_in_tracking', 'tracking.ignore_edge_W',
+    'tracking.ignore_edge_H', 'tracking.handle_dynamic',
+    'tracking.const_speed_assumption', 'tracking.var_floor',
+    'tracking.gt_camera',
+    'mapping.bound', 'mapping.marching_cubes_bound', 'mapping.pixels',
+    'mapping.iters', 'mapping.iters_first', 'mapping.lr_factor',
+    'mapping.lr_first_factor', 'mapping.middle_iter_ratio',
+    'mapping.fine_iter_ratio', 'mapping.every_frame', 'mapping.BA',
+    'mapping.BA_cam_lr', 'mapping.fix_fine', 'mapping.fix_color',
+    'mapping.train_middle', 'mapping.frustum_feature_selection',
+    'mapping.keyframe_every', 'mapping.mapping_window_size',
+    'mapping.w_color_loss', 'mapping.keyframe_selection_method',
+    'mapping.color_refine', 'mapping.imap_decoders_lr',
+    'mapping.max_rays_per_pass', 'mapping.ckpt_freq', 'mapping.mesh_freq',
+    'mapping.no_mesh_on_first_frame', 'mapping.no_log_on_first_frame',
+    'mapping.save_selected_keyframes_info',
+    'mapping.stage.*.decoders_lr', 'mapping.stage.*.coarse_lr',
+    'mapping.stage.*.middle_lr', 'mapping.stage.*.fine_lr',
+    'mapping.stage.*.color_lr',
+    'meshing.resolution', 'meshing.level_set', 'meshing.clean_mesh',
+    'meshing.depth_test', 'meshing.mesh_coarse_level',
+    'meshing.clean_mesh_bound_scale', 'meshing.get_largest_components',
+    'meshing.remove_small_geometry_threshold',
+    'meshing.color_mesh_extraction_method', 'meshing.eval_rec',
+    'meshing.async',
+})
+
+_ABSENT = object()   # the key is not in the config
+_VIS = ('the visualizer panels are not ported (ROADMAP item 18): no '
+        'panels are written')
+_AUTOTUNE = ("the JAX package's TPU compile re-roll is not ported (the "
+             "port's 'Semantics, not TPU workarounds' rule); it has no "
+             'effect here')
+_F32 = ('a TPU MXU matmul precision: the port keeps true float32 matmuls '
+        '(TF32 off, its "Precision" rule)')
+
+# The keys the port does not act on: key -> (action, the JAX package's
+# value when the key is absent, the values that change nothing there, what
+# the key drives).  When a config gives a key (or its absence gives it) any
+# other value, SlamSystem warns once ('warn': an output or a TPU setting;
+# the run is the same) or raises NotImplementedError ('refuse') until the
+# ROADMAP item named lands.
+UNPORTED_OPTIONS = {
+    'parallel.map': ('refuse', 'none', ('none',),
+                     'multi-device mapping (ROADMAP item 15)'),
+    'parallel.track': ('refuse', 'none', ('none',),
+                       'ray-sharded tracking (ROADMAP item 15)'),
+    'parallel.devices': ('warn', _ABSENT, (0,),
+                         'the device count of the parallel backends, which '
+                         'are not ported (ROADMAP item 15); it has no '
+                         'effect here'),
+    'visualization.live': ('refuse', _ABSENT, (None, False),
+                           'the live dashboard (ROADMAP item 18)'),
+    'visualization.live_freq': ('warn', _ABSENT, (),
+                                'the live dashboard is not ported (ROADMAP '
+                                'item 18)'),
+    'visualization.live_port': ('warn', _ABSENT, (None,),
+                                'the live dashboard is not ported (ROADMAP '
+                                'item 18)'),
+    'enable_vis': ('warn', True, (False,), _VIS),
+    'tracking.vis_freq': ('warn', _ABSENT, (), _VIS),
+    'mapping.vis_freq': ('warn', _ABSENT, (), _VIS),
+    'mapping.vis_inside_freq': ('warn', _ABSENT, (), _VIS),
+    'mapping.no_vis_on_first_frame': ('warn', _ABSENT, (), _VIS),
+    'debug.profile_dir': ('warn', _ABSENT, (None,),
+                          "the JAX profiler trace is not ported (the port's "
+                          'profile is scripts/port_profile_room0.py)'),
+    'matmul_precision': ('warn', 'float32', ('float32', 'highest'), _F32),
+    'model.decoder_matmul_precision': ('warn', _ABSENT,
+                                       (None, 'float32', 'highest'), _F32),
+    'tracking.autotune_ms': ('warn', _ABSENT, (), _AUTOTUNE),
+    'tracking.autotune_candidates': ('warn', _ABSENT, (), _AUTOTUNE),
+    'mapping.autotune_ms_per_iter': ('warn', _ABSENT, (), _AUTOTUNE),
+    'mapping.autotune_candidates': ('warn', _ABSENT, (), _AUTOTUNE),
+}
+
+
+def _lookup(cfg: dict, key: str):
+    node = cfg
+    for part in key.split('.'):
+        if not isinstance(node, dict) or part not in node:
+            return _ABSENT
+        node = node[part]
+    return node
+
+
+def check_options(cfg: dict) -> list[str]:
+    """Raise NotImplementedError for the first refused option the config
+    sets, naming the key and its value; warn once for every warned one.
+    Returns the warnings' messages."""
+    messages = []
+    for key, (action, default, inert, what) in UNPORTED_OPTIONS.items():
+        value = _lookup(cfg, key)
+        if value is _ABSENT:
+            value = default
+        if value is _ABSENT or value in inert:
+            continue
+        if action == 'refuse':
+            raise NotImplementedError(
+                f'{key}: {value!r} is not ported yet: {what}')
+        msg = f'{key}: {value!r} is ignored: {what}'
+        warnings.warn(msg, UserWarning, stacklevel=3)
+        messages.append(msg)
+    return messages
 
 
 def load_config(path: str, default_path: str | None = None) -> dict:
@@ -98,6 +228,7 @@ def render_config_from_cfg(cfg: dict) -> RenderConfig:
         n_importance=int(r['N_importance']),
         lindisp=bool(r['lindisp']),
         perturb=float(r['perturb']),
+        occupancy=bool(cfg['occupancy']),
         grad_z=bool(r.get('grad_z', False)),
     )
 
@@ -147,6 +278,7 @@ def mapper_config_from_cfg(cfg: dict, *, coarse_mapper: bool = False
         keyframe_selection=sel,
         color_refine=bool(m['color_refine']),
         stage_lr=stage_lr,
+        imap_decoders_lr=float(m.get('imap_decoders_lr', 0.0002)),
         max_rays_per_pass=int(m.get('max_rays_per_pass', 0)),
         coarse_mapper=coarse_mapper)
 

@@ -4,7 +4,7 @@ config, several seeds, on the CPU.
     JAX_PLATFORMS=cpu python scripts/port_jax_accuracy_bound.py \
         [--config configs/Synthetic/synthetic.yaml] [--seeds 0 1 2] \
         [--package jax|torch] [--device cpu|cuda] [--recon] \
-        [--sync strict|loose|free]
+        [--sync strict|loose|free] [--imap]
 
 Runs the whole sequence through `SlamSystem` of the JAX package (default)
 or of the port (`--package torch`, on `--device`) for each seed and prints
@@ -24,6 +24,10 @@ the reconstruction bound: 1.5x the worst seed's accuracy and completion
 --sync sets the config's `sync_method` (default: the config's own).  The
 JAX package then runs on one local device, as the port does: its 'free'
 falls back to 'loose' there, and its two-device pipeline stays off.
+
+--imap runs iMAP* (`SlamSystem(cfg, nice=False)`) with configs/imap.yaml
+as the base config, as `run.py --imap` does (e.g. --config
+configs/Synthetic/synthetic_imap.yaml).
 """
 
 from __future__ import annotations
@@ -38,19 +42,23 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def base_config(nice: bool) -> str:
+    return 'configs/nice_slam.yaml' if nice else 'configs/imap.yaml'
+
+
 def run_jax(config: str, sync: str | None, seed: int, out: str,
-            recon: bool):
+            recon: bool, nice: bool = True):
     import jax
     jax.config.update('jax_platforms', 'cpu')
     from nice_slam_tpu.engine.slam import SlamSystem
     from nice_slam_tpu.utils.config import load_config
-    cfg = load_config(config, 'configs/nice_slam.yaml')
+    cfg = load_config(config, base_config(nice))
     if sync is not None:
         cfg['sync_method'] = sync
     cfg['verbose'] = False
     cfg['enable_vis'] = False
     cfg.setdefault('meshing', {})['eval_rec'] = False
-    slam = SlamSystem(cfg, nice=True, output=out, seed=seed)
+    slam = SlamSystem(cfg, nice=nice, output=out, seed=seed)
     if not recon:
         slam.mesher = None   # only the trajectory is scored
     slam.run()
@@ -58,15 +66,15 @@ def run_jax(config: str, sync: str | None, seed: int, out: str,
 
 
 def run_torch(config: str, sync: str | None, seed: int, device: str,
-              out: str, recon: bool):
+              out: str, recon: bool, nice: bool = True):
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     from nice_slam_tpu_torch.utils.config import load_config
-    cfg = load_config(config, 'configs/nice_slam.yaml')
+    cfg = load_config(config, base_config(nice))
     if sync is not None:
         cfg['sync_method'] = sync
     cfg.setdefault('meshing', {})['eval_rec'] = False
-    slam = SlamSystem(cfg, device=device, seed=seed, verbose=False,
-                      output=out)
+    slam = SlamSystem(cfg, nice=nice, device=device, seed=seed,
+                      verbose=False, output=out)
     if not recon:
         slam.mesher = None   # only the trajectory is scored
     slam.run()
@@ -94,6 +102,9 @@ def main() -> None:
                     help='keep the mesher on and score the final mesh')
     ap.add_argument('--sync', choices=('strict', 'loose', 'free'),
                     help="the config's sync_method (default: as loaded)")
+    ap.add_argument('--imap', action='store_true',
+                    help='iMAP* over configs/imap.yaml (default: NICE over '
+                    'configs/nice_slam.yaml)')
     args = ap.parse_args()
 
     import numpy as np
@@ -106,10 +117,11 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as out:
             if args.package == 'jax':
                 est, gt, cfg = run_jax(args.config, args.sync, seed, out,
-                                       args.recon)
+                                       args.recon, nice=not args.imap)
             else:
                 est, gt, cfg = run_torch(args.config, args.sync, seed,
-                                         args.device, out, args.recon)
+                                         args.device, out, args.recon,
+                                         nice=not args.imap)
             recon = score_mesh(out, cfg) if args.recon else {}
         err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
         ate = evaluate_ate(est, gt)
@@ -122,6 +134,7 @@ def main() -> None:
     worst_rmse = max(r['ate_rmse_m'] for r in rows)
     worst_max = max(r['max_frame_err_m'] for r in rows)
     summary = {'package': args.package, 'config': args.config,
+               'method': 'imap' if args.imap else 'nice',
                'sync_method': args.sync or 'as loaded', 'seeds': args.seeds,
                'worst_ate_rmse_m': worst_rmse,
                'worst_max_frame_err_m': worst_max,

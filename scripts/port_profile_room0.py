@@ -1,7 +1,7 @@
 """Where the time goes in the port at room0's full width: a torch.profiler
 trace of one tracked frame and one normal mapping call on the GPU.
 
-    python scripts/port_profile_room0.py [--out build/profile_room0]
+    python scripts/port_profile_room0.py [--out build/profile_room0] [--imap]
 
 configs/Replica/room0.yaml as loaded (pretrained decoders, 680x1200, grid
 shapes, budgets) on the analytic synthetic scene.  Set-up, not profiled:
@@ -17,6 +17,18 @@ profiler, the index distribution the scatter kernel sees (per table: calls,
 points, distinct rows, longest segment) and the scatter's time on the last
 index of each table beside index_add_ and index_put_ with accumulate;
 writes the key_averages tables under --out.
+
+--imap profiles iMAP* instead: configs/Replica/room0_imap.yaml over
+configs/imap.yaml (680x1200, 5000 px x 50 tracking iterations, 5000 px x
+300 mapping iterations as 3 outer x 100, hidden 256) on the same scene,
+the first map cut to 60 iterations; profiled are tracking frame 1 and one
+normal mapping call at frame 1, and the line adds each call's FP32-core
+bound: the decoder MLP's multiply-adds for the points the call decodes
+(forward, and the backward's input gradients, plus its weight gradients
+in mapping) over the H100's 67 TFLOP/s FP32 rate (data sheet; TF32 stays
+off).  There is no scatter to record; instead the line adds the wall time
+of the last frame's color refine (5 x 300 iterations on a window of 10),
+tracked and mapped after the profiled calls, outside the profiler.
 """
 
 from __future__ import annotations
@@ -28,6 +40,35 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+FP32_FLOP_PER_S = 67e12        # H100 SXM FP32 without tensor cores
+
+
+def imap_mlp_macs(dcfg) -> int:
+    """Multiply-adds of the iMAP* decoder per point: p @ B, the dense
+    layers and the 4-wide head (Fourier embedding of 93)."""
+    h = dcfg.imap_hidden
+    return 3 * 93 + 93 * h + (dcfg.imap_blocks - 1) * h * h + h * 4
+
+
+def imap_bounds_ms(slam) -> dict:
+    """FP32-core bounds of one tracked frame and one normal mapping call:
+    tracking decodes pixels x (n_samples + n_importance) points an
+    iteration, forward and the input-gradient backward (2x); mapping also
+    decodes the regulation's n_samples per pixel, with the weight
+    gradients too (3x)."""
+    rc, tc, mc = slam.rcfg, slam.tcfg, slam.mcfg
+    macs = imap_mlp_macs(slam.dcfg)
+    track_pts = tc.pixels * (rc.n_samples + rc.n_importance) * tc.iters
+    map_pts = mc.pixels * (2 * rc.n_samples + rc.n_importance) \
+        * (mc.iters // 3) * 3
+    flop = lambda pts, passes: 2.0 * macs * pts * passes
+    return {'mlp_macs_per_point': macs,
+            'track_frame_fp32_bound_ms': flop(track_pts, 2)
+            / FP32_FLOP_PER_S * 1e3,
+            'map_call_fp32_bound_ms': flop(map_pts, 3)
+            / FP32_FLOP_PER_S * 1e3}
 
 
 def busy_share(events, wall_us: float) -> tuple[float, int]:
@@ -51,6 +92,8 @@ def busy_share(events, wall_us: float) -> tuple[float, int]:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument('--out', default='build/profile_room0')
+    ap.add_argument('--imap', action='store_true',
+                    help='profile iMAP* on room0_imap.yaml')
     args = ap.parse_args()
 
     import torch
@@ -63,14 +106,19 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
     os.makedirs(args.out, exist_ok=True)
-    cfg = load_config('configs/Replica/room0.yaml', 'configs/nice_slam.yaml')
+    if args.imap:
+        cfg = load_config('configs/Replica/room0_imap.yaml',
+                          'configs/imap.yaml')
+    else:
+        cfg = load_config('configs/Replica/room0.yaml',
+                          'configs/nice_slam.yaml')
     cfg['dataset'] = 'synthetic'
     cfg['synthetic'] = {'n_frames': 3, 'radius': 0.8, 'step': 0.02,
                         'noise': 0.003,
                         'box': [[-2.8, 8.8], [-3.1, 5.4], [-3.4, 3.2]]}
     cfg['verbose'] = False
     cfg['mapping']['iters_first'] = 60
-    slam = SlamSystem(cfg, device='cuda', seed=0,
+    slam = SlamSystem(cfg, nice=not args.imap, device='cuda', seed=0,
                       output=os.path.join(args.out, 'run'))
     slam.step(0)
     frame = slam.frame_reader[1]
@@ -81,7 +129,10 @@ def main() -> None:
     def map_call():
         slam.map_frame(1, *frame[1:])
 
-    out = {'gpu': torch.cuda.get_device_name(0)}
+    out = {'gpu': torch.cuda.get_device_name(0),
+           'method': 'imap' if args.imap else 'nice'}
+    if args.imap:
+        out.update(imap_bounds_ms(slam))
     for name, fn in (('track_frame', track), ('map_call', map_call)):
         fn()                                   # warm-up
         torch.cuda.synchronize()
@@ -104,8 +155,28 @@ def main() -> None:
                                e.count] for e in top]}
         with open(os.path.join(args.out, f'{name}.txt'), 'w') as f:
             f.write(avg.table(sort_by='device_time_total', row_limit=40))
-    out['scatter_index'] = index_distribution(ga, map_call)
+    if args.imap:
+        out['refine_call_ms'] = refine_ms(slam)
+    else:
+        out['scatter_index'] = index_distribution(ga, map_call)
     print(json.dumps(out))
+
+
+def refine_ms(slam) -> float:
+    """Track the last frame, then time its mapping call, the color refine
+    (wall clock, synchronized)."""
+    import torch
+    idx = slam.n_img - 1
+    frame = slam.frame_reader[idx]
+    slam.track(idx, *frame[1:])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam.map_frame(idx, *frame[1:])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if slam.timers.maps[-1][1] != 'refine':
+        raise AssertionError('the last mapping call was not a color refine')
+    return ms
 
 
 def index_distribution(ga, map_call) -> dict:

@@ -110,6 +110,9 @@ def test_free_tracks_with_coarse_rounds(tmp_path):
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     with warnings.catch_warnings():
         warnings.simplefilter('error')   # forced free: no fallback warning
+        # the config's visualizer keys warn that the panels are not ported
+        warnings.filterwarnings(
+            'ignore', message=r'\S+: .* is ignored: the visualizer panels')
         slam = SlamSystem(_cfg('free', 10, coarse=True, sync_force_free=True),
                           device='cpu', seed=4, output=str(tmp_path))
     assert slam.sync_method == 'free'

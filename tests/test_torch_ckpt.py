@@ -4,9 +4,9 @@ port's versions of tests/test_engine.py's checkpoint tests).
 
 The resume contract is exact: with `ckpt.compress_images: false` the
 resumed run's poses, grids, decoders and both random streams equal the
-uninterrupted run's bit for bit.  It needs PyTorch's deterministic
-algorithms: the mapper's gather backward (index_put_ with accumulate) adds
-in a thread-dependent order otherwise.
+uninterrupted run's bit for bit, with PyTorch's deterministic algorithms
+on and without them (the mapper's gather backward on the CPU is
+index_add_, whose summation order does not depend on the threads).
 """
 
 import os
@@ -98,6 +98,17 @@ def test_resume_bit_faithful(tmp_path, deterministic):
     """Five frames, a checkpoint with exact images, a restore into a fresh
     system, the rest of the run: the same poses, grids, decoders and
     random streams as the run that never stopped."""
+    _check_resume_bit_faithful(tmp_path)
+
+
+def test_resume_bit_faithful_without_deterministic_algorithms(tmp_path):
+    """The same, with PyTorch's deterministic algorithms off (as a run
+    has them)."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    _check_resume_bit_faithful(tmp_path)
+
+
+def _check_resume_bit_faithful(tmp_path):
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     from nice_slam_tpu_torch.utils.ckpt import load_checkpoint, save_checkpoint
     cfg = _small_cfg(9)

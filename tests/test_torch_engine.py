@@ -90,9 +90,7 @@ def test_config_views_match(world):
     from nice_slam_tpu.engine.slam import (
         mapper_config_from_cfg, tracker_config_from_cfg)
     j = jcfg.render_config_from_cfg(cfg)
-    assert tcfg_mod.render_config_from_cfg(cfg) == (
-        j.n_samples, j.n_surface, j.n_importance, j.lindisp, j.perturb,
-        j.ray_chunk, j.grad_z)
+    assert tcfg_mod.render_config_from_cfg(cfg)._asdict() == j._asdict()
     assert tcfg_mod.tracker_config_from_cfg(cfg) == tuple(
         tracker_config_from_cfg(cfg))
     for coarse in (False, True):

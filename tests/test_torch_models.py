@@ -229,8 +229,17 @@ def test_render_rays_matches_with_gradients(setup, stage):
 
 
 def test_render_rays_refuses_importance_sampling(setup):
+    """Importance sampling is ported (tests/test_torch_imap.py); what
+    render_rays refuses is a stochastic draw (perturb > 0) with no
+    generator to draw from, and with one it adds the n_importance samples
+    to every ray."""
     _, _, _, tmodel, decs, tgrids = setup
-    with pytest.raises(NotImplementedError):
-        tr.render_rays(decs, tgrids, torch.zeros(4, 3), torch.ones(4, 3),
-                       stage='color', model=tmodel,
-                       rcfg=tr.RenderConfig(n_importance=8))
+    rcfg = tr.RenderConfig(n_importance=8, perturb=1.0)
+    o, d = torch.zeros(4, 3), torch.ones(4, 3)
+    with pytest.raises(ValueError):
+        tr.render_rays(decs, tgrids, o, d, stage='color', model=tmodel,
+                       rcfg=rcfg)
+    *_, weights = tr.render_rays(decs, tgrids, o, d, stage='color',
+                                 model=tmodel, rcfg=rcfg,
+                                 generator=torch.Generator().manual_seed(0))
+    assert weights.shape == (4, rcfg.n_samples + rcfg.n_importance)
