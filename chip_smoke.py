@@ -60,9 +60,19 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                C 32) and room0's finecolor shape: ms, GB/s and the share of
                3.35 TB/s; the copy beside clone at each shape, also as
                device time alone (CUDA graphs of 20 calls), and host time
-               per call at 28x21x14;
+               per call at 28x21x14; row 10's widen8, shifts and
+               expand_same_x (and repeat / index_select) also as device
+               time alone at 64x48x40;
                the faster of copy and clone at room0's finecolor buffer is
                the measured streaming bound
+     formats   every dataset format (Replica, ScanNet with an invalid-pose
+               frame, TUM RGB-D, CoFusion, Azure) written by the port's
+               fixture tool, 6 frames of the analytic scene at 60x80, read
+               back through get_dataset and held to the fixture tests'
+               bars (color, depth, poses; TUM's association count); a TUM
+               variant with freiburg1_desk.yaml's distortion, crop_size and
+               crop_edge, and a ScanNet variant whose color is twice the
+               depth's size; the loader's ms per frame
   4. accuracy  configs/Synthetic/synthetic.yaml (40 frames) through
                SlamSystem on the card, writing checkpoints and meshes (one
                on the background thread at frame 20, the final one at 128^3)
@@ -73,6 +83,14 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                to 0.67x the worst JAX seed (scripts/port_jax_accuracy_bound.py
                [--recon], recorded in PERF.md); the last checkpoint restored
                into a fresh SlamSystem gives bit-equal grids and decoders
+     disk_accuracy  synthetic.yaml's 40 frames written in Replica format
+               by the port's writer and run from those files
+               (SlamSystem(input_folder=...)), ATE and the 128^3 mesh held
+               to 1.5x / 0.67x the worst JAX seed on the same files
+               (scripts/port_jax_accuracy_bound.py --disk replica --recon);
+               then eval_ate, cull_mesh and eval_recon -3d as subprocesses
+               on its output: the in-process ATE and calc_3d_metric printed
+               digit for digit, a non-empty culled ground-truth mesh
   5. room0     configs/Replica/room0.yaml as loaded (pretrained decoders,
                680x1200 frames, grid shapes, budgets, eval_rec meshing at
                256^3) on 12 frames of the analytic synthetic scene;
@@ -87,6 +105,11 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                middle and fine+color tables on the index of the room0
                run's last mapping iteration on each (few rows, long
                segments: the scatter's main-path case)
+     disk_room0  room0 as in phase 5 from a Replica-format directory
+               that the port's writer made from the analytic room0 scene:
+               times beside phase 5's, the host's JPEG / PNG / whole-frame
+               decode ms at 680x1200, the Prefetcher's wait, launches, and
+               the ATE, finite and at most 5x phase 5's
   7. overlap   sync_method: loose (mapping rounds on their own thread and
                stream, every every_frame // 2 frames): synthetic.yaml, 40
                frames, ATE RMSE and largest per-frame error held to 1.5x
@@ -174,6 +197,28 @@ IMAP_BOUND_MAX_ERR_M = 1.5 * 0.05245661363005638
 IMAP_BOUND_ACCURACY_CM = 1.5 * 9.86952977686645
 IMAP_BOUND_COMPLETION_CM = 1.5 * 51.49361388315506
 IMAP_BOUND_COMPLETION_RATIO_PCT = 0.67 * 15.3175
+
+# 1.5x (ATE RMSE, largest per-frame error, mesh accuracy and completion)
+# and 0.67x (completion ratio) the worst of seeds 0-2 of the JAX package on
+# synthetic.yaml's 40 frames read back from Replica-format files that the
+# port's writer made (JAX_PLATFORMS=cpu python
+# scripts/port_jax_accuracy_bound.py --disk replica --recon --seeds S, one
+# process a seed; cv2 decodes the files there): worst ATE RMSE 0.036042 m
+# and per-frame error 0.096482 m (seed 0), worst accuracy 8.148973 cm
+# (seed 1), completion 48.357763 cm and ratio 19.438 % (seed 0)
+DISK_BOUND_ATE_RMSE_M = 1.5 * 0.036042170526335265
+DISK_BOUND_MAX_ERR_M = 1.5 * 0.096481554210186
+DISK_BOUND_ACCURACY_CM = 1.5 * 8.148973189357847
+DISK_BOUND_COMPLETION_CM = 1.5 * 48.35776259491734
+DISK_BOUND_COMPLETION_RATIO_PCT = 0.67 * 19.438
+
+# the formats phase: every dataset format at the fixture tests' size, held
+# to tests/test_dataset_fixtures.py's bars (_check_images): mean |color -
+# source| < 0.08 / 4 through JPEG, < 0.01 / 4 through PNG; depth within 2
+# quantization steps + 1e-4; poses within 1e-6
+FORMAT_KINDS = ('replica', 'scannet', 'tumrgbd', 'cofusion', 'azure')
+FORMAT_N, FORMAT_H, FORMAT_W = 6, 60, 80
+FORMAT_SCANNET_NAN_FRAME = 3
 
 # room0 under loose, held to this multiple of the same run's strict room0
 # ATE RMSE and largest per-frame error: the JAX package has no room0 loose
@@ -296,9 +341,10 @@ def phase_card() -> str:
 
 
 def phase_build() -> dict:
+    from nice_slam_tpu_torch.io import codecs
     from nice_slam_tpu_torch.mesh import native
     from nice_slam_tpu_torch.ops import expand, fused_mlp, gather, roofline
-    modules = (expand, fused_mlp, gather, roofline, native)
+    modules = (expand, fused_mlp, gather, roofline, native, codecs)
 
     def build(mod):
         t0 = time.perf_counter()
@@ -941,6 +987,25 @@ def phase_roofline() -> dict:
             'share_of_hbm': nbytes / ms / 1e-3 / HBM_BYTES_PER_S,
             'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3})
     launches = dict(rf.LAUNCHES)
+    # row 10's probes at the study's shape as device time alone (CUDA
+    # graphs of 20 calls: the host's launch path out), beside their
+    # one-call libraries timed the same way
+    shape, c, small, _ = inputs['study_variants']
+    m = shape[0] * shape[1] * shape[2]
+    rows_same_x = corner_rows(shape, 'cuda', same_x=True)
+    device_alone = {
+        'widen8': (lambda: rf.probe('widen8', small, shape),
+                   lambda: small.repeat(1, 8)),
+        'shifts': (lambda: rf.probe('shifts', small, shape), None),
+        'expand_same_x': (lambda: rf.probe('expand_same_x', small, shape),
+                          lambda: small.index_select(0, rows_same_x).reshape(
+                              m, 8 * c))}
+    for mode, (probe_fn, lib_fn) in device_alone.items():
+        r = next(r for r in rows if r['probe'] == mode
+                 and r['shape_name'] == 'study_variants')
+        r['graph_ms'] = graph_ms(probe_fn)
+        r['library_graph_ms'] = graph_ms(lib_fn) if lib_fn else None
+        r['graph_share_of_bound'] = r['bound_ms'] / r['graph_ms']
     # the copy against clone, also as device time alone (CUDA graphs), with
     # host time per call at the smallest shape (those launches come after
     # the count is read)
@@ -977,7 +1042,8 @@ def phase_roofline() -> dict:
         raise AssertionError(f'probes not launched: {launches}')
     return res
 
-def run_slam(cfg: dict, output: str, mesh: bool = True, nice: bool = True):
+def run_slam(cfg: dict, output: str, mesh: bool = True, nice: bool = True,
+             input_folder: str | None = None):
     """One SlamSystem run on the card with every kernel's count set to 0
     just before and read just after; every kernel of the NICE path must
     have launched (the fused MLP only runs in meshes), and none in iMAP*
@@ -995,7 +1061,8 @@ def run_slam(cfg: dict, output: str, mesh: bool = True, nice: bool = True):
     for mod in (ex, fm, ga):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
-    slam = SlamSystem(cfg, nice=nice, device='cuda', seed=0, output=output)
+    slam = SlamSystem(cfg, nice=nice, device='cuda', seed=0, output=output,
+                      input_folder=input_folder)
     if not mesh:
         slam.mesher = None
     slam.run()
@@ -1014,6 +1081,7 @@ def run_slam(cfg: dict, output: str, mesh: bool = True, nice: bool = True):
         'frames': int(slam.n_img), 'wall_s': wall,
         'ate_rmse_m': ate['absolute_translational_error.rmse'],
         'max_frame_err_m': float(err.max()),
+        'frame_err_m': [round(float(e), 6) for e in err],
         'track_ms_per_frame': statistics.mean(tracked),
         # under loose, frame 1 waits for the first-frame round
         'track_ms_median': statistics.median(tracked),
@@ -1024,6 +1092,8 @@ def run_slam(cfg: dict, output: str, mesh: bool = True, nice: bool = True):
         'meshes': [{'file': name, 's': sec, 'pieces_s': pieces}
                    for name, sec, pieces in slam.timers.meshes],
         'peak_mem_bytes': int(torch.cuda.max_memory_allocated()),
+        'frame_read_s': slam.timers.read_s,
+        'prefetch_wait_s': slam.timers.prefetch_wait_s,
         'sync_method': slam.sync_method, 'refreshes': dict(slam.refreshes),
         'launches': launches,
     }
@@ -1383,6 +1453,321 @@ def phase_imap_room0() -> None:
                              'did not mesh at 256^3')
 
 
+def _hold_frames(name, ds, expected, scale, lossy, pose_tol=1e-6) -> dict:
+    """Every frame of `ds` against expected(i) -> (color, depth, pose or
+    None) at the fixture bars (poses within `pose_tol`); returns the errors
+    and the ms per frame the loader took (decode included)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(len(ds))]
+    read_ms = (time.perf_counter() - t0) / len(ds) * 1e3
+    worst = {'color_mean_abs': 0.0, 'depth_max_abs': 0.0, 'pose_max_abs': 0.0}
+    for i, (idx, color, depth, pose) in enumerate(items):
+        color_x, depth_x, pose_x = expected(i)
+        if idx != i or color.shape != color_x.shape \
+                or depth.shape != depth_x.shape:
+            raise AssertionError(f'{name} frame {i}: index {idx}, shapes '
+                                 f'{color.shape} {depth.shape}')
+        worst['color_mean_abs'] = max(worst['color_mean_abs'], float(
+            np.mean(np.abs(color - color_x))))
+        worst['depth_max_abs'] = max(worst['depth_max_abs'], float(
+            np.max(np.abs(depth - depth_x))))
+        if pose_x is not None:
+            worst['pose_max_abs'] = max(worst['pose_max_abs'], float(
+                np.max(np.abs(pose - pose_x))))
+    bars = {'color_mean_abs': (0.08 if lossy else 0.01) / 4,
+            'depth_max_abs': 2.0 / scale + 1e-4, 'pose_max_abs': pose_tol}
+    for key, bar in bars.items():
+        if not worst[key] < bar:
+            raise AssertionError(f'{name}: {key} {worst[key]} >= {bar}')
+    return {'frames': len(items), 'read_ms_per_frame': read_ms, **worst}
+
+
+def phase_formats() -> None:
+    """Each dataset format written by the port's fixture tool and read back
+    by its loader; a TUM variant with freiburg1_desk's distortion, a
+    crop_size and a crop_edge, and a ScanNet variant whose color is twice
+    the depth's size."""
+    import numpy as np
+    import yaml
+    from nice_slam_tpu_torch.io.datasets import (
+        _intrinsics_matrix, _resize_bilinear_align_corners, _resize_nearest,
+        get_dataset, undistort)
+    from nice_slam_tpu_torch.tools import make_fixture_dataset as fx
+    n, h, w = FORMAT_N, FORMAT_H, FORMAT_W
+    f, cx, cy = 0.5 * w, 0.5 * w - 0.5, 0.5 * h - 0.5
+    frames = fx.make_frames(n, h, w, f, f, cx, cy)
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+
+    def cfg_of(kind, folder, **cam):
+        return {'dataset': kind, 'scale': 1.0,
+                'cam': {'H': h, 'W': w, 'fx': f, 'fy': f, 'cx': cx,
+                        'cy': cy, 'png_depth_scale': fx.DEPTH_SCALE[kind],
+                        'crop_edge': 0, **cam},
+                'data': {'input_folder': folder}}
+
+    def tum_pose(i):
+        """The source trajectory rebased on its first (CV-convention)
+        pose, as the TUM loader gives it."""
+        cv = [p @ flip for _, _, p in frames]
+        return np.linalg.inv(cv[0]) @ cv[i] @ flip
+
+    res = {'phase': 'formats', 'size': [h, w], 'frames': n, 'formats': {}}
+    with tempfile.TemporaryDirectory() as root:
+        for kind in FORMAT_KINDS:
+            folder = os.path.join(root, kind)
+            fx.write_dataset(kind, folder, frames, h, w, f, f, cx, cy,
+                             scannet_nan_frame=(FORMAT_SCANNET_NAN_FRAME
+                                                if kind == 'scannet'
+                                                else None))
+            ds = get_dataset(cfg_of(kind, folder))
+            if len(ds) != n:
+                raise AssertionError(f'{kind}: {len(ds)} frames, not {n}')
+
+            def expected(i, kind=kind):
+                color, depth, pose = frames[i]
+                if kind == 'cofusion':
+                    pose = np.eye(4)
+                elif kind == 'tumrgbd':
+                    pose = tum_pose(i)
+                elif kind == 'scannet' and i == FORMAT_SCANNET_NAN_FRAME:
+                    pose = None
+                return color, depth, pose
+
+            # TUM's groundtruth.txt holds 6 decimals (1e-4, as
+            # tests/test_dataset_fixtures.py holds its rebased trajectory)
+            row = _hold_frames(kind, ds, expected, fx.DEPTH_SCALE[kind],
+                               lossy=kind != 'cofusion',
+                               pose_tol=1e-4 if kind == 'tumrgbd' else 1e-6)
+            if kind == 'scannet':
+                nan_pose = ds[FORMAT_SCANNET_NAN_FRAME][3]
+                if np.isfinite(nan_pose).any():
+                    raise AssertionError('ScanNet invalid frame not kept')
+                row['invalid_frame'] = FORMAT_SCANNET_NAN_FRAME
+            if kind == 'tumrgbd':
+                row['associated'] = len(ds)
+            res['formats'][kind] = row
+
+        # TUM with freiburg1_desk's distortion, its crop_size and crop_edge
+        # scaled from 640x480 to the fixture's 80x60
+        with open('configs/TUM_RGBD/freiburg1_desk.yaml') as fh:
+            desk = yaml.safe_load(fh)['cam']
+        ratio = w / desk['W']
+        crop = [int(round(desk['crop_size'][0] * ratio)),
+                int(round(desk['crop_size'][1] * ratio))]
+        edge = max(1, int(round(desk['crop_edge'] * ratio)))
+        ds = get_dataset(cfg_of('tumrgbd', os.path.join(root, 'tumrgbd'),
+                                distortion=desk['distortion'],
+                                crop_size=crop, crop_edge=edge))
+        k = _intrinsics_matrix(f, f, cx, cy)
+
+        def distorted(i):
+            color, depth, _ = frames[i]
+            u8 = (color * 255).astype(np.uint8)
+            c = undistort(u8, k, np.array(desk['distortion'])).astype(
+                np.float32) / 255.0
+            c = _resize_bilinear_align_corners(c, *crop)[edge:-edge,
+                                                         edge:-edge]
+            d = _resize_nearest(depth.astype(np.float32), *crop)[
+                edge:-edge, edge:-edge]
+            return c, d, tum_pose(i)
+
+        row = _hold_frames('tumrgbd_distorted', ds, distorted,
+                           fx.DEPTH_SCALE['tumrgbd'], lossy=True,
+                           pose_tol=1e-4)
+        row.update(distortion=desk['distortion'], crop_size=crop,
+                   crop_edge=edge)
+        res['formats']['tumrgbd_distorted'] = row
+
+        # ScanNet's color at twice the depth's size, resized on reading
+        folder = os.path.join(root, 'scannet_2x')
+        fx.write_dataset('scannet', folder, frames, h, w, f, f, cx, cy,
+                         color_upscale=2)
+        row = _hold_frames('scannet_color_2x',
+                           get_dataset(cfg_of('scannet', folder)),
+                           lambda i: frames[i], fx.DEPTH_SCALE['scannet'],
+                           lossy=True)
+        row['color_size'] = [2 * h, 2 * w]
+        res['formats']['scannet_color_2x'] = row
+    emit(res)
+
+
+def start_tool(module: str, *args) -> subprocess.Popen:
+    """`python -m nice_slam_tpu_torch.tools.<module> args` as a user runs
+    it (on the CPU), started in the background."""
+    return subprocess.Popen(
+        [sys.executable, '-m', f'nice_slam_tpu_torch.tools.{module}',
+         *args], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def tool_output(proc: subprocess.Popen) -> dict:
+    """A started tool's printed `key: value` lines; raises if it failed."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    if proc.returncode != 0:
+        raise AssertionError(f'{proc.args[2]} exited {proc.returncode}:\n'
+                             f'{err[-3000:]}')
+    return dict(line.split(': ', 1) for line in out.splitlines()
+                if ': ' in line)
+
+
+def phase_disk_accuracy() -> None:
+    """synthetic.yaml's 40 frames written in Replica format by the port's
+    writer and run from those files, held to the JAX bound on the same
+    files; then eval_ate, cull_mesh and eval_recon on the run's output."""
+    import numpy as np
+    import yaml
+    from nice_slam_tpu_torch.eval.ate import evaluate_ate
+    from nice_slam_tpu_torch.eval.recon import calc_3d_metric
+    from nice_slam_tpu_torch.io.datasets import synthetic_gt_mesh
+    from nice_slam_tpu_torch.mesh.mesher import load_ply, save_ply
+    from nice_slam_tpu_torch.tools.make_fixture_dataset import write_scene
+    from nice_slam_tpu_torch.utils.config import load_config
+    cfg = load_config('configs/Synthetic/synthetic.yaml',
+                      'configs/nice_slam.yaml')
+    cfg['verbose'] = False
+    with tempfile.TemporaryDirectory() as root:
+        data, out = os.path.join(root, 'data'), os.path.join(root, 'out')
+        t0 = time.perf_counter()
+        disk = write_scene(cfg, 'replica', data)
+        write_s = time.perf_counter() - t0
+        disk['data']['output'] = out
+        res, slam = run_slam(disk, out, input_folder=data)
+        mesh_path = os.path.join(out, 'mesh', 'final_mesh.ply')
+        res['mesh_vertices'] = mesh_vertices(mesh_path)
+        rec_v, rec_t = load_ply(mesh_path)
+        gt_v, gt_t = synthetic_gt_mesh(cfg['synthetic']['box'])
+        res['recon'] = calc_3d_metric(rec_v, rec_t, gt_v, gt_t, align=False)
+        res.update(phase='disk_accuracy',
+                   config='configs/Synthetic/synthetic.yaml',
+                   dataset='replica (files of the port\'s writer)',
+                   write_s=write_s,
+                   bound_ate_rmse_m=DISK_BOUND_ATE_RMSE_M,
+                   bound_max_frame_err_m=DISK_BOUND_MAX_ERR_M,
+                   bound_accuracy_cm=DISK_BOUND_ACCURACY_CM,
+                   bound_completion_cm=DISK_BOUND_COMPLETION_CM,
+                   bound_completion_ratio_pct=DISK_BOUND_COMPLETION_RATIO_PCT)
+
+        # the tools, as a user runs them on the run's output
+        scene = os.path.join(root, 'scene.yaml')
+        with open(scene, 'w') as fh:
+            yaml.safe_dump(disk, fh)
+        gt_path = os.path.join(root, 'gt.ply')
+        save_ply(gt_path, gt_v, gt_t)
+        t0 = time.perf_counter()
+        culled = os.path.join(root, 'gt_culled.ply')
+        procs = [start_tool('eval_ate', scene, '--output', out),
+                 start_tool('cull_mesh', scene, '--input_mesh', gt_path,
+                            '--output_mesh', culled),
+                 start_tool('eval_recon', '--rec_mesh', mesh_path,
+                            '--gt_mesh', gt_path, '-3d')]
+        try:
+            ate = evaluate_ate(slam.estimate_c2w, slam.gt_c2w)
+            recon_aligned = calc_3d_metric(rec_v, rec_t, gt_v, gt_t)
+            ate_tool, _, recon_tool = (tool_output(p) for p in procs)
+        finally:
+            for p in procs:
+                p.kill()
+        culled_faces = len(load_ply(culled)[1])
+        res['tools'] = {
+            'eval_ate': ate_tool, 'in_process_ate_rmse_m': ate[
+                'absolute_translational_error.rmse'],
+            'cull_mesh_faces': [culled_faces, len(gt_t)],
+            'eval_recon_3d': recon_tool,
+            'in_process_recon_aligned': recon_aligned,
+            'seconds': time.perf_counter() - t0}
+        emit(res)
+        if not (res['ate_rmse_m'] <= DISK_BOUND_ATE_RMSE_M
+                and res['max_frame_err_m'] <= DISK_BOUND_MAX_ERR_M):
+            raise AssertionError('disk accuracy outside the JAX bound')
+        rec = res['recon']
+        if not (rec['accuracy_cm'] <= DISK_BOUND_ACCURACY_CM
+                and rec['completion_cm'] <= DISK_BOUND_COMPLETION_CM
+                and rec['completion_ratio_%']
+                >= DISK_BOUND_COMPLETION_RATIO_PCT):
+            raise AssertionError('disk reconstruction outside the JAX bound')
+        for key in ('rmse', 'mean', 'max'):
+            k = f'absolute_translational_error.{key}'
+            if ate_tool.get(k) != f'{ate[k]:.6f}':
+                raise AssertionError(f'eval_ate printed {ate_tool.get(k)} '
+                                     f'for {k}, in process {ate[k]:.6f}')
+        if not 0 < culled_faces <= len(gt_t):
+            raise AssertionError(f'cull_mesh kept {culled_faces} faces')
+        for k, v in recon_aligned.items():
+            if recon_tool.get(k) != f'{v:.4f}':
+                raise AssertionError(f'eval_recon printed {recon_tool.get(k)}'
+                                     f' for {k}, in process {v:.4f}')
+        if not np.isfinite(res['ate_rmse_m']):
+            raise AssertionError('non-finite disk ATE')
+
+
+def phase_disk_room0(strict_room0: dict) -> None:
+    """room0 at full width from a Replica-format directory that the port's
+    writer made from the analytic room0 scene: times beside the analytic
+    room0 phase's, host decode ms, the prefetcher's wait, launches, ATE."""
+    import numpy as np
+    from nice_slam_tpu_torch.io import codecs
+    from nice_slam_tpu_torch.io.datasets import get_dataset
+    from nice_slam_tpu_torch.tools.make_fixture_dataset import write_scene
+    cfg = room0_cfg()
+    with tempfile.TemporaryDirectory() as root:
+        data, out = os.path.join(root, 'data'), os.path.join(root, 'out')
+        t0 = time.perf_counter()
+        disk = write_scene(cfg, 'replica', data)
+        write_s = time.perf_counter() - t0
+        res, slam = run_slam(disk, out, input_folder=data)
+        res['mesh_vertices'] = {
+            f: mesh_vertices(os.path.join(out, 'mesh', f))
+            for f in ('final_mesh.ply', 'final_mesh_eval_rec.ply')}
+        # the host's decode of a frame, alone on the host after the run
+        ds = get_dataset(disk)
+        jpeg_ms, png_ms, frame_ms = [], [], []
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            codecs.read_color(ds.color_paths[i])
+            t1 = time.perf_counter()
+            codecs.read_png(ds.depth_paths[i])
+            t2 = time.perf_counter()
+            ds[i]
+            t3 = time.perf_counter()
+            jpeg_ms.append((t1 - t0) * 1e3)
+            png_ms.append((t2 - t1) * 1e3)
+            frame_ms.append((t3 - t2) * 1e3)
+        nbytes = sum(os.path.getsize(p) for p in ds.color_paths
+                     + ds.depth_paths)
+    maps = [r['ms'] for r in res['map_calls_ms'] if r['kind'] == 'normal']
+    strict_maps = [r['ms'] for r in strict_room0['map_calls_ms']
+                   if r['kind'] == 'normal']
+    res.update(
+        phase='disk_room0', config='configs/Replica/room0.yaml',
+        dataset='replica (files of the port\'s writer, the analytic room0 '
+                'scene)', write_s=write_s, files_bytes=nbytes,
+        size=[slam.intr.H, slam.intr.W],
+        decode_jpeg_ms_median=statistics.median(jpeg_ms),
+        decode_png_ms_median=statistics.median(png_ms),
+        frame_read_ms_median=statistics.median(frame_ms),
+        map_normal_ms=maps,
+        analytic_room0={
+            'track_ms_per_frame': strict_room0['track_ms_per_frame'],
+            'track_ms_median': strict_room0['track_ms_median'],
+            'map_normal_ms': strict_maps,
+            'frame_read_s': strict_room0['frame_read_s'],
+            'prefetch_wait_s': strict_room0['prefetch_wait_s'],
+            'ate_rmse_m': strict_room0['ate_rmse_m'],
+            'max_frame_err_m': strict_room0['max_frame_err_m'],
+            'wall_s': strict_room0['wall_s']},
+        bound_ate_rmse_m=LOOSE_ROOM0_FACTOR * strict_room0['ate_rmse_m'])
+    emit(res)
+    if not (np.isfinite(res['ate_rmse_m'])
+            and res['ate_rmse_m'] <= res['bound_ate_rmse_m']):
+        raise AssertionError(f'room0 from disk: ATE {res["ate_rmse_m"]} '
+                             f'outside {LOOSE_ROOM0_FACTOR}x the analytic '
+                             'run\'s')
+
+
 def _entry(row, name, source, replaces, launches, err, ms, plain_ms,
            bound_ms, library_ms, shape, bound_by='bytes', **extra):
     return {'row': row, 'name': name, 'route': 'cuda',
@@ -1555,6 +1940,8 @@ def main(argv=None) -> int:
         mlp = phase_fused_mlp(ptxas['nice_slam_tpu_torch/csrc/fused_mlp.cu'])
         phase_model_parity()
         lap('kernels')
+        phase_formats()
+        lap('formats')
         if args.ab_parent:
             phase_mlp_ab(args.ab_parent)
             lap('fused_mlp_ab')
@@ -1564,6 +1951,8 @@ def main(argv=None) -> int:
         lap('roofline')
         phase_accuracy()
         lap('accuracy')
+        phase_disk_accuracy()
+        lap('disk_accuracy')
         with tempfile.TemporaryDirectory() as out:
             room0, slam, real = phase_room0(out)
             lap('room0')
@@ -1573,6 +1962,8 @@ def main(argv=None) -> int:
         gather.update(phase_real_index(real))
         del real
         lap('real_index')
+        phase_disk_room0(room0)
+        lap('disk_room0')
         phase_overlap(room0)
         lap('overlap')
         phase_imap_accuracy()

@@ -18,9 +18,13 @@ Layer map (same as `nice_slam_tpu/__init__.py`):
   render/    L2  volume renderer
   engine/    L3/L4 tracker, mapper, keyframes, orchestrator (strict, loose
                  and free schedules)
-  io/        L5  dataset ingest (the analytic `synthetic` scene), prefetcher
-  eval/      L7  ATE
-  utils/     —   config views, masked Adam
+  io/        L5  dataset ingest (Replica, ScanNet, TUM RGB-D, CoFusion,
+                 Azure, the analytic `synthetic` scene), the PNG / JPEG
+                 codecs (csrc/imageio.cpp) and EXR reader, prefetcher
+  eval/      L7  ATE, trajectory association, reconstruction metrics
+  utils/     —   config views, masked Adam, checkpoints
+  tools/     —   eval_ate, cull_mesh, eval_recon, prep_own_data,
+                 make_fixture_dataset (command lines)
 
 Entry points run on CUDA unless the caller passes `device='cpu'`
 (`SlamSystem(cfg, device=...)`, `python -m nice_slam_tpu_torch <cfg>`).

@@ -1,14 +1,17 @@
 """Command line: run the port's SLAM on a config and report the ATE.
 
-    python -m nice_slam_tpu_torch configs/Synthetic/synthetic.yaml \
-        [--nice | --imap] [--output DIR] [--resume] [--device cpu] [--seed N]
+    python -m nice_slam_tpu_torch configs/Replica/room0.yaml \
+        [--nice | --imap] [--input_folder DIR] [--output DIR] [--resume] \
+        [--device cpu] [--seed N]
 
 `--nice` (the default) and `--imap` pick the method, NICE-SLAM or iMAP*,
 and the base config the scene config layers over: configs/nice_slam.yaml
 or configs/imap.yaml (paths relative to the working directory, as for
-run.py).  Runs on CUDA unless `--device cpu` is
-given.  The run's output directory is --output, else the config's
-`data.output`: checkpoints go to `ckpts/`, meshes to `mesh/`, one line per
+run.py).  `--input_folder` is the recorded sequence's directory (default:
+the config's `data.input_folder`), in the format of the config's `dataset`
+(Replica, ScanNet, TUM RGB-D, CoFusion, Azure; io/datasets.py).  Runs on
+CUDA unless `--device cpu` is given.  The run's output directory is
+--output, else the config's `data.output`: checkpoints go to `ckpts/`, meshes to `mesh/`, one line per
 frame to `metrics.jsonl`, and at the end trajectory.npz (estimated and
 ground-truth c2w) and ate.json.  --resume restarts from the newest
 checkpoint in `ckpts/` (from the first frame when there is none).
@@ -26,6 +29,9 @@ def main() -> None:
         description='nice_slam_tpu_torch: NICE-SLAM and iMAP* on '
         'PyTorch/CUDA')
     parser.add_argument('config', type=str, help='path to scene config')
+    parser.add_argument('--input_folder', type=str, default=None,
+                        help="the sequence's directory (default: the "
+                             "config's data.input_folder)")
     group = parser.add_mutually_exclusive_group()
     group.add_argument('--nice', action='store_true', default=True,
                        help='NICE-SLAM (the default)')
@@ -52,7 +58,8 @@ def main() -> None:
     default = 'configs/nice_slam.yaml' if args.nice else 'configs/imap.yaml'
     cfg = load_config(args.config, default)
     slam = SlamSystem(cfg, nice=args.nice, device=args.device,
-                      seed=args.seed, output=args.output)
+                      seed=args.seed, output=args.output,
+                      input_folder=args.input_folder)
     print(f'INFO: running on {slam.device}; output folder is {slam.output}')
     start = 0
     if args.resume:

@@ -102,12 +102,17 @@ class PhaseTimers:
     `maps` holds (frame, kind, iterations, seconds) with kind one of
     'first', 'coarse', 'normal', 'refine'; `meshes` holds (file name,
     seconds, the mesher's seconds per piece) per extraction and `mesh_s`
-    their sum.  The tracker, the mapping thread and the mesh thread add
-    records, so every access goes through the lock."""
+    their sum.  `read_s` and `prefetch_wait_s` are the Prefetcher's of the
+    last `run()`: the seconds its threads spent reading (decoding) frames
+    and the seconds the main thread waited for one.  The tracker, the
+    mapping thread and the mesh thread add records, so every access goes
+    through the lock."""
     track: list = field(default_factory=list)
     maps: list = field(default_factory=list)
     meshes: list = field(default_factory=list)
     mesh_s: float = 0.0
+    read_s: float = 0.0
+    prefetch_wait_s: float = 0.0
     lock: threading.Lock = field(default_factory=threading.Lock,
                                  repr=False, compare=False)
 
@@ -136,7 +141,8 @@ class PhaseTimers:
         out = {'track_s': track_s, 'map_s': map_s,
                'coarse_map_s': sum(s for _, kind, _, s in self.maps
                                    if kind == 'coarse'),
-               'mesh_s': self.mesh_s,
+               'mesh_s': self.mesh_s, 'read_s': self.read_s,
+               'prefetch_wait_s': self.prefetch_wait_s,
                'frames_tracked': len(self.track),
                'frames_mapped': sum(kind != 'coarse'
                                     for _, kind, _, _ in self.maps),
@@ -158,7 +164,11 @@ class SlamSystem:
 
     def __init__(self, cfg: dict, *, nice: bool = True, device=None,
                  seed: int = 0, verbose: bool | None = None,
-                 output: str | None = None):
+                 output: str | None = None, input_folder: str | None = None,
+                 frame_reader=None):
+        """`input_folder` overrides the config's `data.input_folder` (the
+        sequence's directory); `frame_reader` replaces the config's loader
+        (an index-addressable reader of (index, color, depth, c2w))."""
         cfgutil.check_options(cfg)
         self.device = resolve_device(device)
         # true f32 matmuls: reduced-precision passes destabilize the pose
@@ -265,7 +275,8 @@ class SlamSystem:
         else:
             self._init_nice(cfg, init_gen)
 
-        self.frame_reader = get_dataset(cfg)
+        self.frame_reader = (get_dataset(cfg, input_folder)
+                             if frame_reader is None else frame_reader)
         self.n_img = len(self.frame_reader)
         self.estimate_c2w = np.zeros((self.n_img, 4, 4), dtype=np.float32)
         self.gt_c2w = np.zeros((self.n_img, 4, 4), dtype=np.float32)
@@ -875,6 +886,9 @@ class SlamSystem:
                     pool.shutdown(wait=True, cancel_futures=True)
             self._map_pool = self._mesh_pool = None
             self.frame_reader.close()
+            with self.timers.lock:
+                self.timers.read_s = self.frame_reader.read_s
+                self.timers.prefetch_wait_s = self.frame_reader.wait_s
             self.frame_reader = reader
         if self.verbose:
             print('INFO: run complete:', self.timers.summary())

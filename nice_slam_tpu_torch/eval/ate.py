@@ -1,7 +1,8 @@
 """Absolute trajectory error; port of `nice_slam_tpu/eval/ate.py`: Horn's
 closed-form alignment of the estimated positions onto the ground truth,
 then translational RMSE / mean / median / std / min / max, with poses whose
-ground truth is not finite left out."""
+ground truth is not finite left out; and the timestamp association of two
+stamped trajectories (TUM-format files)."""
 
 from __future__ import annotations
 
@@ -47,3 +48,21 @@ def evaluate_ate(est_c2w: np.ndarray, gt_c2w: np.ndarray,
         'absolute_translational_error.min': float(np.min(trans_error)),
         'absolute_translational_error.max': float(np.max(trans_error)),
     }
+
+
+def associate(first: dict, second: dict, offset: float = 0.0,
+              max_difference: float = 0.02) -> list:
+    """Pairs (a, b) of timestamps of two stamped dicts, each used once,
+    closest first, |a - (b + offset)| < max_difference; sorted."""
+    potential = sorted((abs(a - (b + offset)), a, b)
+                       for a in first for b in second
+                       if abs(a - (b + offset)) < max_difference)
+    matches = []
+    used_a, used_b = set(), set()
+    for _, a, b in potential:
+        if a not in used_a and b not in used_b:
+            used_a.add(a)
+            used_b.add(b)
+            matches.append((a, b))
+    matches.sort()
+    return matches

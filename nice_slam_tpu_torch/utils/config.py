@@ -32,7 +32,10 @@ from nice_slam_tpu_torch.render.renderer import RenderConfig
 # package.
 HONOURED = frozenset({
     'cam.H', 'cam.W', 'cam.fx', 'cam.fy', 'cam.cx', 'cam.cy',
-    'cam.crop_size', 'cam.crop_edge',
+    'cam.crop_size', 'cam.crop_edge', 'cam.png_depth_scale',
+    'cam.distortion', 'data.input_folder',
+    'synthetic.n_frames', 'synthetic.box', 'synthetic.radius',
+    'synthetic.step', 'synthetic.noise',
     'grid_len.bound_divisible', 'grid_len.coarse', 'grid_len.middle',
     'grid_len.fine', 'grid_len.color',
     'model.c_dim', 'model.coarse_bound_enlarge',

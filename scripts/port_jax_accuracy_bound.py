@@ -4,7 +4,7 @@ config, several seeds, on the CPU.
     JAX_PLATFORMS=cpu python scripts/port_jax_accuracy_bound.py \
         [--config configs/Synthetic/synthetic.yaml] [--seeds 0 1 2] \
         [--package jax|torch] [--device cpu|cuda] [--recon] \
-        [--sync strict|loose|free] [--imap]
+        [--sync strict|loose|free] [--imap] [--disk replica|...]
 
 Runs the whole sequence through `SlamSystem` of the JAX package (default)
 or of the port (`--package torch`, on `--device`) for each seed and prints
@@ -28,11 +28,19 @@ falls back to 'loose' there, and its two-device pipeline stays off.
 --imap runs iMAP* (`SlamSystem(cfg, nice=False)`) with configs/imap.yaml
 as the base config, as `run.py --imap` does (e.g. --config
 configs/Synthetic/synthetic_imap.yaml).
+
+--disk KIND first writes the config's analytic scene to a temporary
+directory in dataset KIND's on-disk format with the port's writer
+(nice_slam_tpu_torch/tools/make_fixture_dataset.write_scene: JPEG color at
+quality 97, uint16 PNG depth), then runs every seed through that format's
+loader from those files: the JAX package decodes them with cv2, the port
+with its own codecs.  The mesh is scored against the same analytic scene.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import sys
@@ -46,15 +54,12 @@ def base_config(nice: bool) -> str:
     return 'configs/nice_slam.yaml' if nice else 'configs/imap.yaml'
 
 
-def run_jax(config: str, sync: str | None, seed: int, out: str,
-            recon: bool, nice: bool = True):
+def run_jax(cfg: dict, seed: int, out: str, recon: bool,
+            nice: bool = True):
     import jax
     jax.config.update('jax_platforms', 'cpu')
     from nice_slam_tpu.engine.slam import SlamSystem
-    from nice_slam_tpu.utils.config import load_config
-    cfg = load_config(config, base_config(nice))
-    if sync is not None:
-        cfg['sync_method'] = sync
+    cfg = copy.deepcopy(cfg)
     cfg['verbose'] = False
     cfg['enable_vis'] = False
     cfg.setdefault('meshing', {})['eval_rec'] = False
@@ -62,23 +67,20 @@ def run_jax(config: str, sync: str | None, seed: int, out: str,
     if not recon:
         slam.mesher = None   # only the trajectory is scored
     slam.run()
-    return slam.estimate_c2w, slam.gt_c2w, cfg
+    return slam.estimate_c2w, slam.gt_c2w
 
 
-def run_torch(config: str, sync: str | None, seed: int, device: str,
-              out: str, recon: bool, nice: bool = True):
+def run_torch(cfg: dict, seed: int, device: str, out: str, recon: bool,
+              nice: bool = True):
     from nice_slam_tpu_torch.engine.slam import SlamSystem
-    from nice_slam_tpu_torch.utils.config import load_config
-    cfg = load_config(config, base_config(nice))
-    if sync is not None:
-        cfg['sync_method'] = sync
+    cfg = copy.deepcopy(cfg)
     cfg.setdefault('meshing', {})['eval_rec'] = False
     slam = SlamSystem(cfg, nice=nice, device=device, seed=seed,
                       verbose=False, output=out)
     if not recon:
         slam.mesher = None   # only the trajectory is scored
     slam.run()
-    return slam.estimate_c2w, slam.gt_c2w, cfg
+    return slam.estimate_c2w, slam.gt_c2w
 
 
 def score_mesh(out: str, cfg: dict) -> dict:
@@ -105,37 +107,52 @@ def main() -> None:
     ap.add_argument('--imap', action='store_true',
                     help='iMAP* over configs/imap.yaml (default: NICE over '
                     'configs/nice_slam.yaml)')
+    ap.add_argument('--disk', choices=('replica', 'scannet', 'tumrgbd',
+                                       'cofusion', 'azure'),
+                    help="read the config's analytic scene from files in "
+                    "this dataset's format, written by the port's writer")
     args = ap.parse_args()
 
     import numpy as np
 
     from nice_slam_tpu_torch.eval.ate import evaluate_ate
+    from nice_slam_tpu_torch.tools.make_fixture_dataset import write_scene
+    from nice_slam_tpu_torch.utils.config import load_config
 
+    cfg = load_config(args.config, base_config(not args.imap))
+    if args.sync is not None:
+        cfg['sync_method'] = args.sync
     rows = []
-    for seed in args.seeds:
+    with tempfile.TemporaryDirectory() as data:
         t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as out:
-            if args.package == 'jax':
-                est, gt, cfg = run_jax(args.config, args.sync, seed, out,
-                                       args.recon, nice=not args.imap)
-            else:
-                est, gt, cfg = run_torch(args.config, args.sync, seed,
-                                         args.device, out, args.recon,
-                                         nice=not args.imap)
-            recon = score_mesh(out, cfg) if args.recon else {}
-        err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
-        ate = evaluate_ate(est, gt)
-        row = {'package': args.package, 'seed': seed, 'frames': len(err),
-               'ate_rmse_m': ate['absolute_translational_error.rmse'],
-               'max_frame_err_m': float(err.max()), **recon,
-               'seconds': time.perf_counter() - t0}
-        rows.append(row)
-        print(json.dumps(row), flush=True)
+        if args.disk:
+            cfg = write_scene(cfg, args.disk, data)
+        write_s = time.perf_counter() - t0
+        for seed in args.seeds:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as out:
+                if args.package == 'jax':
+                    est, gt = run_jax(cfg, seed, out, args.recon,
+                                      nice=not args.imap)
+                else:
+                    est, gt = run_torch(cfg, seed, args.device, out,
+                                        args.recon, nice=not args.imap)
+                recon = score_mesh(out, cfg) if args.recon else {}
+            err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
+            ate = evaluate_ate(est, gt)
+            row = {'package': args.package, 'seed': seed,
+                   'frames': len(err),
+                   'ate_rmse_m': ate['absolute_translational_error.rmse'],
+                   'max_frame_err_m': float(err.max()), **recon,
+                   'seconds': time.perf_counter() - t0}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
     worst_rmse = max(r['ate_rmse_m'] for r in rows)
     worst_max = max(r['max_frame_err_m'] for r in rows)
     summary = {'package': args.package, 'config': args.config,
                'method': 'imap' if args.imap else 'nice',
                'sync_method': args.sync or 'as loaded', 'seeds': args.seeds,
+               'disk': args.disk, 'write_s': write_s,
                'worst_ate_rmse_m': worst_rmse,
                'worst_max_frame_err_m': worst_max,
                'bound_ate_rmse_m': 1.5 * worst_rmse,

@@ -23,8 +23,10 @@ from tests.util import make_test_cfg
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# what the JAX package's SlamSystem and its config readers read
-JAX_READERS = ('nice_slam_tpu/engine/slam.py', 'nice_slam_tpu/utils/config.py')
+# what the JAX package's SlamSystem, its config readers and its dataset
+# loaders read
+JAX_READERS = ('nice_slam_tpu/engine/slam.py', 'nice_slam_tpu/utils/config.py',
+               'nice_slam_tpu/io/datasets.py')
 
 
 def jax_config_keys(path: str) -> set[str]:
@@ -98,7 +100,9 @@ def test_every_key_the_jax_package_reads_is_accounted_for():
     # the walk finds what it should: a sample of each kind of read
     assert {'tracking.pixels', 'mapping.stage.*.decoders_lr',
             'parallel.map', 'mapping.vis_inside_freq', 'occupancy',
-            'model.decoder_matmul_precision', 'data.prefetch'} <= keys
+            'model.decoder_matmul_precision', 'data.prefetch',
+            'cam.png_depth_scale', 'cam.distortion',
+            'data.input_folder'} <= keys
     assert len(keys) > 100
     assert not HONOURED & set(UNPORTED_OPTIONS)
     missing = keys - HONOURED - set(UNPORTED_OPTIONS)

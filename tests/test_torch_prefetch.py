@@ -87,3 +87,29 @@ def test_workers_deliver_in_order():
 def test_synthetic_reader_advertises_workers():
     from nice_slam_tpu_torch.io.datasets import SyntheticBox
     assert SyntheticBox.prefetch_workers == 4
+
+
+def test_read_and_wait_seconds():
+    """`read_s` sums the reader's time on the pool's threads; `wait_s` is
+    the consumer's wait for in-order frames: all of it when the consumer
+    is faster than the reader, none once the pool has read ahead."""
+    r = SlowReader(5, delay=0.03)
+    p = Prefetcher(r, ahead=5)
+    try:
+        for i in range(5):
+            p[i]
+        assert p.read_s >= 5 * 0.03
+        assert 3 * 0.03 <= p.wait_s <= p.read_s + 0.5
+    finally:
+        p.close()
+    r = SlowReader(4, delay=0.01)
+    p = Prefetcher(r, ahead=4)
+    try:
+        deadline = time.time() + 5
+        while len(r.reads) < 4 and time.time() < deadline:
+            time.sleep(0.01)
+        for i in range(4):
+            p[i]
+        assert p.wait_s < 0.02
+    finally:
+        p.close()
