@@ -4,6 +4,9 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--ab-parent DIR]
 
+It needs one card; with more it also runs the parallel phases one rank a
+card and the two-device pipeline.
+
 Run from the root of a checkout.  Phases, each printed as a JSON line:
   1. card      name and power limit (nvidia-smi)
   2. build     the port's native sources, one compiler process each, all
@@ -141,6 +144,38 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                (median and range), ms per normal mapping call, mesh
                seconds, render ms, peak memory, and the ATE, gated only to
                be finite
+ 10. parallel_parity  the parallel backends on ranks (parallel/): two
+               ranks sharing the card (gloo) on a machine of one card, one
+               rank a card (NCCL) on more, each this script started with
+               --rank-task and brought up from the NSTPU_* variables; the
+               kernels are built before, the ranks load them.  On
+               synthetic.yaml's frames with random decoders and volumes:
+               ray-sharded tracking and keyframe-sharded mapping against the
+               single-rank steps on the same draws (the JAX package's
+               sharded-against-single tolerances: tracking losses rtol 2e-4
+               and poses 5e-5, mapping losses rtol 2e-4 and poses 1e-5),
+               the blocked step (2 blocks) against the ray-sharded step of
+               the same ray shares (losses rtol 1e-4, volumes rtol 1e-4 /
+               atol 5e-6, tests/test_blocked.py's), and the sharded query of
+               a 262,144-point 256^3-lattice chunk bit-equal to the
+               unsharded one; every check's outputs bit-identical over the
+               ranks and its kernels launched on every rank
+ 11. parallel_tum  configs/TUM_RGBD/freiburg1_desk_multichip.yaml (track:
+               rays, map: rays) at full width (480x640, fr1/desk's
+               distortion and crop, 5000 px x 200 tracking and 5000 px x 60
+               mapping iterations every frame, window 10) from a TUM-format
+               directory of the analytic scene, cut to 5 frames,
+               iters_first 100, no color refine: a world of one here, then
+               the ranks; per rank ms per tracked frame and mapping call,
+               ms in collectives per iteration, launches, peak memory; the
+               ranks' poses bit-identical, their ATE at most 5x the world
+               of one's, the five kernels of rows 1-8 launched on every
+               rank, the final mesh written by rank 0 through the sharded
+               lattice query
+ 12. pipeline  with two or more cards: the overlap phase's loose room0 (the
+               mapper on the second card) beside the same run in a process
+               that sees one card; ATE within 5x of strict room0.  On one
+               card it prints {"phase": "pipeline", "ran": false}
 Then the kernel table line {"kernels": [...]} (one entry per TPU kernel of
 the repository; launches from phase 5, the probes' from the roofline
 phase; the scatter's times from the real-index case), the card line, and last {"ok": true, "device": {...}}.  Any
@@ -150,6 +185,7 @@ once.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import json
 import math
@@ -1313,7 +1349,9 @@ def phase_overlap(strict_room0: dict) -> dict:
     cfg = room0_cfg()
     cfg['sync_method'] = 'loose'
     with tempfile.TemporaryDirectory() as out:
-        room0, _ = run_slam(cfg, out, mesh=False)
+        room0, slam = run_slam(cfg, out, mesh=False)
+        room0['map_device'] = str(slam.map_device)
+        del slam
     maps = [r for r in room0['map_calls_ms'] if r['kind'] != 'coarse']
     room0.update(
         phase='overlap_room0', config='configs/Replica/room0.yaml',
@@ -1768,6 +1806,562 @@ def phase_disk_room0(strict_room0: dict) -> None:
                              'run\'s')
 
 
+# ---------------------------------------------------------------------------
+# the parallel backends: ranks as processes (parallel/distributed.py)
+# ---------------------------------------------------------------------------
+
+# sharded against single-rank step tolerances: tests/test_parallel.py
+# (tracking: losses rtol 2e-4, poses atol 5e-5), tests/test_distributed.py
+# (keyframe mapping: losses rtol 2e-4, poses atol 1e-5), tests/
+# test_blocked.py (the blocked step against the ray-sharded one: losses
+# rtol 1e-4, volumes rtol 1e-4 / atol 5e-6)
+PAR_TRACK_RTOL, PAR_TRACK_ATOL = 2e-4, 5e-5
+PAR_KF_RTOL, PAR_KF_CAM_ATOL = 2e-4, 1e-5
+PAR_BLOCK_RTOL, PAR_BLOCK_ATOL = 1e-4, 5e-6
+# the TUM run's ATE on the ranks: at most 5x the world of one's (the rule
+# the loose and disk room0 runs use, PERF.md section 2)
+TUM_ATE_FACTOR = 5.0
+# the TUM run's cuts of depth (the widths and budgets stay the config's)
+TUM_FRAMES = 5
+TUM_ITERS_FIRST = 100
+# the analytic scene inside freiburg1_desk's bound once the TUM loader
+# rebases it on the first pose (x - 0.8, y and z negated)
+TUM_SCENE = {'box': [[-2.5, 2.5], [-2.0, 2.0], [-3.0, 1.5]],
+             'radius': 0.8, 'step': 0.02, 'noise': 0.003}
+TUM_MC_BOUND = [[-3.2, 1.6], [-1.9, 1.9], [-1.4, 2.9]]
+
+
+def rank_count() -> int:
+    """One rank per card on a machine of two or more cards, else two ranks
+    sharing the one card."""
+    import torch
+    return max(2, torch.cuda.device_count())
+
+
+def spawn_ranks(task: str, n: int, args=(), timeout: float = 600.0,
+                env=None) -> list:
+    """Run `chip_smoke.py --rank-task TASK` as n ranks (the NSTPU_*
+    bring-up), each writing its JSON result to a file of its own; returns
+    the results in rank order.  Every rank is waited for or killed."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix=f'ranks_{task}_')
+    procs, logs = [], []
+    base = dict(os.environ if env is None else env)
+    base.update(NSTPU_COORDINATOR=f'localhost:{port}',
+                NSTPU_NUM_PROCESSES=str(n))
+    base.pop('NSTPU_CPU_SIM', None)
+    base.pop('NSTPU_LOCAL_DEVICES', None)
+    try:
+        for rank in range(n):
+            log = open(os.path.join(tmp, f'rank{rank}.log'), 'w')
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(REPO, 'chip_smoke.py'),
+                 '--rank-task', task, '--out',
+                 os.path.join(tmp, f'rank{rank}.json'), *args],
+                cwd=REPO, env={**base, 'NSTPU_PROCESS_ID': str(rank)},
+                stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    results, failed = [], []
+    for rank, p in enumerate(procs):
+        path = os.path.join(tmp, f'rank{rank}.json')
+        if p.returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(tmp, f'rank{rank}.log')) as f:
+                failed.append(f'rank {rank} exited {p.returncode}:\n'
+                              f'{f.read()[-3000:]}')
+            continue
+        with open(path) as f:
+            results.append(json.load(f))
+    if failed:
+        raise AssertionError(f'{task}: ' + '\n'.join(failed))
+    return results
+
+
+def run_rank_task(task: str, out: str, args) -> int:
+    """A rank's body: join the world from NSTPU_*, run the task, write its
+    JSON result.  Imports nothing of JAX."""
+    import torch
+    from nice_slam_tpu_torch.parallel.distributed import (
+        initialize_from_env, shutdown)
+    os.chdir(REPO)
+    sys.path.insert(0, REPO)
+    world = initialize_from_env()
+    try:
+        res = {'parity': rank_parity, 'tum': rank_tum,
+               'loose_room0': rank_loose_room0}[task](world, args)
+        torch.cuda.synchronize()
+        res.update(rank=world.rank, world=world.size, backend=world.backend,
+                   device=str(world.device),
+                   card=torch.cuda.get_device_name(world.device))
+    finally:
+        shutdown()
+    if any(k in sys.modules for k in ('jax', 'nice_slam_tpu')):
+        raise AssertionError('a rank imported the JAX package')
+    with open(out, 'w') as f:
+        json.dump(res, f)
+    return 0
+
+
+def _digest(*tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _launch_counts() -> dict:
+    from nice_slam_tpu_torch.ops import expand as ex
+    from nice_slam_tpu_torch.ops import fused_mlp as fm
+    from nice_slam_tpu_torch.ops import gather as ga
+    return {**ex.LAUNCHES, **ga.LAUNCHES, **fm.LAUNCHES}
+
+
+def _reset_launch_counts() -> None:
+    from nice_slam_tpu_torch.ops import expand as ex
+    from nice_slam_tpu_torch.ops import fused_mlp as fm
+    from nice_slam_tpu_torch.ops import gather as ga
+    for mod in (ex, fm, ga):
+        mod.reset_launch_counts()
+
+
+def _parity_world(dev):
+    """synthetic.yaml's model on the card with random decoders and volumes
+    at 0.1 (every stage has real gradients), and four of its frames."""
+    import torch
+    from nice_slam_tpu_torch.io.datasets import get_dataset
+    from nice_slam_tpu_torch.models.decoders import init_nice_decoders
+    from nice_slam_tpu_torch.models.grids import (
+        init_grids, static_grid_shapes)
+    from nice_slam_tpu_torch.render.renderer import SceneModel
+    from nice_slam_tpu_torch.utils import config as C
+    cfg = C.load_config('configs/Synthetic/synthetic.yaml',
+                        'configs/nice_slam.yaml')
+    gcfg, dcfg = C.grid_config_from_cfg(cfg), C.decoder_config_from_cfg(cfg)
+    gen = torch.Generator().manual_seed(0)
+    decs = init_nice_decoders(dcfg, generator=gen, device='cpu').to(dev)
+    grids = {k: (torch.randn(g.shape, generator=gen) * 0.1).to(dev)
+             for k, g in init_grids(gcfg, generator=gen,
+                                    device='cpu').items()}
+    model = SceneModel(decoder=dcfg,
+                       bound=torch.tensor(gcfg.bound_np, device=dev),
+                       coarse_bound=torch.tensor(gcfg.coarse_bound_np,
+                                                 device=dev),
+                       grid_shapes=static_grid_shapes(gcfg))
+    ds = get_dataset(cfg)
+    frames = [ds[i] for i in (0, 3, 6, 9)]
+    return cfg, model, decs, grids, frames
+
+
+def _fresh(decs, grids):
+    import copy
+    return (copy.deepcopy(decs),
+            {k: g.detach().clone().requires_grad_(True)
+             for k, g in grids.items()})
+
+
+def rank_parity(world, args) -> dict:
+    """The step-level checks of tests/test_torch_parallel.py at small sizes
+    with the kernels launched: each sharded step against the single-rank
+    step on this rank (the same draws), digests of the outputs for the
+    parent's bit-identity check over the ranks."""
+    import numpy as np
+    import torch
+    from nice_slam_tpu_torch.core.cameras import tensor_from_c2w
+    from nice_slam_tpu_torch.engine import mapper as tm
+    from nice_slam_tpu_torch.engine.tracker import track_frame
+    from nice_slam_tpu_torch.mesh.mesher import Mesher
+    from nice_slam_tpu_torch.models.grids import prepare_grids
+    from nice_slam_tpu_torch.parallel import blocks, distributed, sharded
+    from nice_slam_tpu_torch.parallel.mesh import make_block_grid
+    from nice_slam_tpu_torch.render.renderer import eval_raw
+    from nice_slam_tpu_torch.utils import config as C
+    dev = world.device
+    cfg, model, decs, grids, frames = _parity_world(dev)
+    intr, rcfg = C.intrinsics_from_cfg(cfg), C.render_config_from_cfg(cfg)
+    colors = torch.stack([torch.as_tensor(f[1]) for f in frames]).to(dev)
+    depths = torch.stack([torch.as_tensor(f[2]) for f in frames]).to(dev)
+    c2ws = np.stack([f[3] for f in frames])
+    cams = tensor_from_c2w(torch.as_tensor(c2ws[:, :3, :4]).to(dev))
+    cams[1:, 4:] += 0.005
+    res = {}
+
+    # ray-sharded tracking: the same global draws on every rank
+    tcfg = C.tracker_config_from_cfg(cfg)._replace(pixels=1000, iters=10)
+    gen = torch.Generator().manual_seed(1)
+    draws = [tuple(x.to(dev) for x in (
+        torch.randint(tcfg.ignore_edge_w, intr.W - tcfg.ignore_edge_w,
+                      (tcfg.pixels,), generator=gen).float(),
+        torch.randint(tcfg.ignore_edge_h, intr.H - tcfg.ignore_edge_h,
+                      (tcfg.pixels,), generator=gen).float()))
+        for _ in range(tcfg.iters)]
+    kw = dict(model=model, rcfg=rcfg, tcfg=tcfg, intr=intr, draws=draws)
+    guess = cams[1].clone()
+    guess[4:] += 0.01
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    best, _, losses = sharded.sharded_track_frame(
+        decs, grids, colors[1], depths[1], guess, group=world, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    b1, _, l1 = track_frame(decs, grids, colors[1], depths[1], guess, **kw)
+    res['track'] = dict(
+        ms=ms, launches=launches, digest=_digest(best, losses),
+        loss_rel_err=float(((losses - l1).abs() / l1.abs()).max()),
+        pose_err=float((best - b1).abs().max()),
+        moved=float((best - guess).abs().max()))
+
+    # keyframe-sharded mapping: 4 frames, the global draws sliced
+    mcfg = C.mapper_config_from_cfg(cfg)._replace(ba=True)
+    n_iters, pix = 12, 250
+    gen = torch.Generator().manual_seed(2)
+    mdraws = [tm.MapDraws(*(x.to(dev) for x in tm.draw_window_pixels(
+        4, pix, intr, generator=gen, device='cpu'))) for _ in range(n_iters)]
+    mkw = dict(trainable=('color', 'fine'), masks=None,
+               cam_mask=torch.tensor([0.0, 1.0, 1.0, 1.0], device=dev),
+               lr_tab=tm.lr_table(mcfg, n_iters, 0.2, True),
+               stage_idx=tm.stage_schedule(mcfg, n_iters), model=model,
+               rcfg=rcfg, mcfg=mcfg, intr=intr, pix_per_frame=pix)
+    d_kf, g_kf = _fresh(decs, grids)
+    mine = distributed.window_slice(4, world)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    c_kf, l_kf = distributed.kf_sharded_map_step(
+        d_kf, g_kf, cams, group=world, colors=colors[mine],
+        depths=depths[mine], draws=mdraws, **mkw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    d_1, g_1 = _fresh(decs, grids)
+    c_1, l_1 = tm.map_step(d_1, g_1, cams, colors=colors, depths=depths,
+                           draws=mdraws, **mkw)
+    res['kf_map'] = dict(
+        ms=ms, launches=launches,
+        digest=_digest(c_kf, l_kf, *g_kf.values()),
+        loss_rel_err=float(((l_kf - l_1).abs() / l_1.abs()).max()),
+        cam_err=float((c_kf - c_1).abs().max()),
+        moved=float((c_kf - cams).abs().max()))
+
+    # grid-block TP (2 blocks) against the ray-sharded step of the same
+    # ray shares
+    block_group, rays_group = make_block_grid(world, 2, tag='parity')
+    gen = torch.Generator().manual_seed(3 + rays_group.rank)
+    local = pix // rays_group.size
+    bdraws = [tm.MapDraws(*(x.to(dev) for x in tm.draw_window_pixels(
+        4, local, intr, generator=gen, device='cpu'))) for _ in range(6)]
+    bkw = dict(mkw, lr_tab=tm.lr_table(mcfg, 6, 0.2, True),
+               stage_idx=tm.stage_schedule(mcfg, 6))
+    d_r, g_r = _fresh(decs, grids)
+    c_r, l_r = sharded.ray_sharded_map_step(
+        d_r, g_r, cams, group=rays_group, colors=colors, depths=depths,
+        draws=bdraws, **bkw)
+    plan = blocks.plan_blocks(model.grid_shapes, 2)
+    d_b, g_b = _fresh(decs, grids)
+    padded = blocks.pad_for_blocks({k: g.detach() for k, g in g_b.items()},
+                                   plan)
+    slabs = {k: blocks.block_slab(padded[k], plan[k], block_group.rank)
+             .clone().requires_grad_(True) for k in padded}
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    c_b, l_b = blocks.blocked_map_step(
+        d_b, slabs, cams, block_group=block_group, rays_group=rays_group,
+        plan=plan, colors=colors, depths=depths, draws=bdraws, **bkw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    def excess(got, want, atol):
+        got, want = got.detach(), want.detach()
+        return float(((got - want).abs()
+                      - (atol + PAR_BLOCK_RTOL * want.abs())).max())
+
+    grid_excess = max(excess(slab, blocks.block_slab(blocks.pad_for_blocks(
+        {k: g_r[k].detach()}, plan)[k], plan[k], block_group.rank),
+        PAR_BLOCK_ATOL) for k, slab in slabs.items())
+    res['blocked_map'] = dict(
+        ms=ms, launches=launches, blocks=2, ray_shares=rays_group.size,
+        digest=_digest(c_b, l_b),
+        loss_rel_err=float(((l_b - l_r).abs() / l_r.abs()).max()),
+        cam_excess_over_tol=excess(c_b, c_r, 1e-6),
+        grid_excess_over_tol=grid_excess)
+
+    # the sharded lattice query at one 256^3-lattice chunk, through the
+    # fused decoder kernel, against the unsharded query
+    mesher = Mesher(C.mesher_config_from_cfg(cfg)._replace(resolution=256),
+                    model, intr)
+    pts, *_ = mesher.lattice()
+    mid = len(pts) // 2 // POINTS_BATCH * POINTS_BATCH
+    chunk = torch.as_tensor(pts[mid:mid + POINTS_BATCH], device=dev)
+    with torch.no_grad():
+        exp = prepare_grids(grids, model.grid_shapes)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        got = sharded.sharded_eval_points(decs, exp, chunk, 'fine',
+                                          mesher.model, world)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _launch_counts()
+        one = eval_raw(decs, exp, chunk, 'fine', mesher.model)
+    res['eval_points'] = dict(
+        ms=ms, launches=launches, points=int(chunk.shape[0]),
+        bit_equal=bool(torch.equal(got, one)), digest=_digest(got))
+    return res
+
+
+def phase_parallel_parity() -> None:
+    """The parallel steps on ranks against the single-rank steps."""
+    import torch
+    n = rank_count()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks('parity', n, timeout=600)
+    res = {'phase': 'parallel_parity', 'world': n,
+           'backend': ranks[0]['backend'],
+           'cards': sorted({r['device'] for r in ranks}),
+           'card_names': sorted({r['card'] for r in ranks}),
+           'visible_cards': torch.cuda.device_count(),
+           'seconds': time.perf_counter() - t0,
+           'tolerances': {'track': [PAR_TRACK_RTOL, PAR_TRACK_ATOL],
+                          'kf_map': [PAR_KF_RTOL, PAR_KF_CAM_ATOL],
+                          'blocked_map': [PAR_BLOCK_RTOL, PAR_BLOCK_ATOL]}}
+    for check in ('track', 'kf_map', 'blocked_map', 'eval_points'):
+        res[check] = [{k: v for k, v in r[check].items() if k != 'digest'}
+                      for r in ranks]
+        res[check + '_ranks_bit_identical'] = len(
+            {r[check]['digest'] for r in ranks}) == 1
+    emit(res)
+    bad = [c for c in ('track', 'kf_map', 'blocked_map', 'eval_points')
+           if not res[c + '_ranks_bit_identical']]
+    for r in ranks:
+        t, k, b, e = (r['track'], r['kf_map'], r['blocked_map'],
+                      r['eval_points'])
+        if not (t['loss_rel_err'] <= PAR_TRACK_RTOL
+                and t['pose_err'] <= PAR_TRACK_ATOL and t['moved'] > 1e-4):
+            bad.append(f'track on rank {r["rank"]}')
+        if not (k['loss_rel_err'] <= PAR_KF_RTOL
+                and k['cam_err'] <= PAR_KF_CAM_ATOL and k['moved'] > 1e-5):
+            bad.append(f'kf_map on rank {r["rank"]}')
+        if not (b['loss_rel_err'] <= PAR_BLOCK_RTOL
+                and b['cam_excess_over_tol'] <= 0.0
+                and b['grid_excess_over_tol'] <= 0.0):
+            bad.append(f'blocked_map on rank {r["rank"]}')
+        if not e['bit_equal']:
+            bad.append(f'eval_points on rank {r["rank"]}')
+        for check, need in (('track', ('expand_corners', 'gather_rows')),
+                            ('kf_map', ('expand_corners', 'fold_corners',
+                                        'gather_rows', 'scatter_add_rows')),
+                            ('blocked_map', ('gather_rows',
+                                             'scatter_add_rows')),
+                            ('eval_points', ('fused_mlp', 'gather_rows'))):
+            if min(r[check]['launches'][k] for k in need) == 0:
+                bad.append(f'{check} on rank {r["rank"]}: kernels not '
+                           f'launched')
+    if bad:
+        raise AssertionError(f'parallel_parity failed: {bad}')
+
+
+def tum_cfg(input_dir: str) -> dict:
+    """configs/TUM_RGBD/freiburg1_desk_multichip.yaml as loaded (480x640
+    with fr1/desk's distortion, crop and budgets: tracking 5000 px x 200,
+    mapping 5000 px x 60 every frame, window 10), reading the analytic
+    scene the port's writer made in TUM format, cut in depth only."""
+    from nice_slam_tpu_torch.utils.config import load_config
+    cfg = load_config('configs/TUM_RGBD/freiburg1_desk_multichip.yaml',
+                      'configs/nice_slam.yaml')
+    cfg['verbose'] = False
+    cfg['synthetic'] = dict(TUM_SCENE, n_frames=TUM_FRAMES)
+    cfg['data']['input_folder'] = input_dir
+    cfg['cam']['png_depth_scale'] = 5000.0
+    cfg['mapping']['iters_first'] = TUM_ITERS_FIRST
+    cfg['mapping']['color_refine'] = False
+    cfg['mapping']['marching_cubes_bound'] = TUM_MC_BOUND
+    return cfg
+
+
+def tum_run(input_dir: str, output: str, world=None) -> tuple:
+    """One run of the TUM multichip config on `world` (a world of one when
+    None); returns (result, the system)."""
+    import numpy as np
+    import torch
+    from nice_slam_tpu_torch.engine.slam import SlamSystem
+    from nice_slam_tpu_torch.eval.ate import evaluate_ate
+    cfg = tum_cfg(input_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    slam = SlamSystem(cfg, device='cuda', seed=0, output=output, world=world)
+    groups = {'track': slam._track_group, 'map': slam._map_group,
+              'mesh': slam._mesh_group}
+    for g in groups.values():
+        if g is not None and g.size > 1:
+            g.stats.timed = True
+    slam.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    est, gt = slam.estimate_c2w, slam.gt_c2w
+    tracked = [s * 1e3 for idx, s in slam.timers.track if idx > 0]
+    maps = [(kind, n, s * 1e3) for _, kind, n, s in slam.timers.maps]
+    track_iters = slam.tcfg.iters * len(tracked)
+    map_iters = sum(n for _, n, _ in maps)
+    coll = {}
+    for name, g in groups.items():
+        if g is not None and g.size > 1:
+            coll[name] = {'calls': g.stats.calls, 'bytes': g.stats.bytes,
+                          'seconds': g.stats.seconds}
+    mesh_path = os.path.join(output, 'mesh', 'final_mesh.ply')
+    res = {
+        'frames': int(slam.n_img), 'wall_s': wall,
+        'ate_rmse_m': evaluate_ate(est, gt)[
+            'absolute_translational_error.rmse'],
+        'max_frame_err_m': float(np.linalg.norm(
+            est[:, :3, 3] - gt[:, :3, 3], axis=-1).max()),
+        'finite': bool(np.isfinite(est).all()),
+        'poses_digest': __import__('hashlib').sha256(
+            np.ascontiguousarray(est).tobytes()).hexdigest(),
+        'track_ms_per_frame_median': statistics.median(tracked),
+        'track_ms_per_frame': tracked,
+        'map_calls_ms': maps,
+        'collectives': coll,
+        'collective_ms_per_track_iter': (
+            coll['track']['seconds'] * 1e3 / track_iters
+            if 'track' in coll else 0.0),
+        'collective_ms_per_map_iter': (
+            coll['map']['seconds'] * 1e3 / map_iters
+            if 'map' in coll else 0.0),
+        'launches': _launch_counts(),
+        'peak_mem_bytes': int(torch.cuda.max_memory_allocated()),
+        'mesh_s': slam.timers.mesh_s,
+        'writes': slam.writes,
+        'final_mesh_vertices': (mesh_vertices(mesh_path)
+                                if slam.writes else None),
+    }
+    return res, slam
+
+
+def rank_tum(world, args) -> dict:
+    res, _ = tum_run(args.input, args.output_dir, world)
+    return res
+
+
+def phase_parallel_tum() -> None:
+    """freiburg1_desk_multichip.yaml (track: rays, map: rays) from a
+    TUM-format directory of the analytic scene at 480x640: a world of one
+    in this process, then the sharded world as ranks."""
+    import torch
+    from nice_slam_tpu_torch.tools.make_fixture_dataset import write_scene
+    n = rank_count()
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, 'tum')
+        cfg = tum_cfg(data)
+        t0 = time.perf_counter()
+        write_scene({'cam': dict(cfg['cam']), 'synthetic': cfg['synthetic']},
+                    'tumrgbd', data)
+        write_s = time.perf_counter() - t0
+        one, slam = tum_run(data, os.path.join(root, 'one'))
+        del slam
+        torch.cuda.empty_cache()
+        out = os.path.join(root, 'ranks')
+        ranks = spawn_ranks('tum', n, ['--input', data, '--output-dir', out],
+                            timeout=900)
+    res = {'phase': 'parallel_tum',
+           'config': 'configs/TUM_RGBD/freiburg1_desk_multichip.yaml',
+           'world': n, 'backend': ranks[0]['backend'],
+           'cards': sorted({r['device'] for r in ranks}),
+           'visible_cards': torch.cuda.device_count(),
+           'cuts': {'frames': f'{TUM_FRAMES} (the analytic scene)',
+                    'iters_first': f'1500 -> {TUM_ITERS_FIRST}',
+                    'color_refine': 'true -> false',
+                    'marching_cubes_bound': 'the analytic scene\'s'},
+           'fixture_write_s': write_s, 'world_of_one': one,
+           'ranks': ranks,
+           'poses_bit_identical': len({r['poses_digest']
+                                       for r in ranks}) == 1,
+           'bound_ate_rmse_m': TUM_ATE_FACTOR * one['ate_rmse_m']}
+    emit(res)
+    need = ('expand_corners', 'fold_corners', 'gather_rows',
+            'scatter_add_rows', 'fused_mlp')
+    bad = []
+    if not res['poses_bit_identical']:
+        bad.append('ranks\' poses differ')
+    for r in ranks:
+        if not (r['finite'] and r['ate_rmse_m'] <= res['bound_ate_rmse_m']):
+            bad.append(f'rank {r["rank"]} ATE {r["ate_rmse_m"]}')
+        if min(r['launches'][k] for k in need) == 0:
+            bad.append(f'rank {r["rank"]} kernels {r["launches"]}')
+        if 'mesh' not in r['collectives'] or not r['collectives']['mesh'][
+                'calls']:
+            bad.append(f'rank {r["rank"]}: no sharded lattice query')
+    writer = [r for r in ranks if r['writes']]
+    if len(writer) != 1 or not writer[0]['final_mesh_vertices']:
+        bad.append('the final mesh was not written by one rank')
+    if bad:
+        raise AssertionError(f'parallel_tum failed: {bad}')
+
+
+def rank_loose_room0(world, args) -> dict:
+    """room0 under loose on the one card this process sees."""
+    cfg = room0_cfg()
+    cfg['sync_method'] = 'loose'
+    with tempfile.TemporaryDirectory() as out:
+        res, slam = run_slam(cfg, out, mesh=False)
+        res['map_device'] = str(slam.map_device)
+    return res
+
+
+def phase_pipeline(strict_room0: dict, overlap_room0: dict) -> None:
+    """The two-device pipeline (loose, a world of one, two or more cards:
+    the mapper on the second card): the overlap phase's room0 ran it;
+    beside it the same run on one card (a process that sees one)."""
+    import torch
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({'phase': 'pipeline', 'ran': False, 'cards': cards})
+        return
+    env = dict(os.environ,
+               CUDA_VISIBLE_DEVICES=os.environ.get(
+                   'CUDA_VISIBLE_DEVICES', '0').split(',')[0])
+    one = spawn_ranks('loose_room0', 1, timeout=600, env=env)[0]
+    maps = [r['ms'] for r in overlap_room0['map_calls_ms']
+            if r['kind'] == 'normal']
+    one_maps = [r['ms'] for r in one['map_calls_ms']
+                if r['kind'] == 'normal']
+    res = {'phase': 'pipeline', 'ran': True, 'cards': cards,
+           'map_device': overlap_room0['map_device'],
+           'track_ms_median': overlap_room0['track_ms_median'],
+           'one_card_track_ms_median': one['track_ms_median'],
+           'map_ms_per_normal_call': maps,
+           'one_card_map_ms_per_normal_call': one_maps,
+           'wall_s': overlap_room0['wall_s'],
+           'one_card_wall_s': one['wall_s'],
+           'one_card_map_device': one['map_device'],
+           'ate_rmse_m': overlap_room0['ate_rmse_m'],
+           'one_card_ate_rmse_m': one['ate_rmse_m'],
+           'bound_ate_rmse_m': LOOSE_ROOM0_FACTOR * strict_room0[
+               'ate_rmse_m'],
+           'refreshes': overlap_room0['refreshes'],
+           'sync_method': overlap_room0['sync_method']}
+    emit(res)
+    if overlap_room0['map_device'] == 'cuda:0' or not (
+            res['ate_rmse_m'] <= res['bound_ate_rmse_m']):
+        raise AssertionError('pipeline: the mapper did not run on the '
+                             'second card, or its ATE is outside 5x the '
+                             'strict run\'s')
+
+
 def _entry(row, name, source, replaces, launches, err, ms, plain_ms,
            bound_ms, library_ms, shape, bound_by='bytes', **extra):
     return {'row': row, 'name': name, 'route': 'cuda',
@@ -1897,13 +2491,18 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
 
 
 def parse_args(argv):
-    import argparse
     ap = argparse.ArgumentParser(description='Chip smoke test of the '
                                  'PyTorch/CUDA port on one GPU.')
     ap.add_argument('--ab-parent', metavar='DIR',
                     help="time the fused MLP against another tree's "
                     "(DIR holds that tree's ops/fused_mlp.py and "
                     'csrc/fused_mlp.cu) after the kernels phase')
+    # a rank of the parallel phases (started by this script, NSTPU_* set)
+    ap.add_argument('--rank-task', choices=('parity', 'tum', 'loose_room0'),
+                    help=argparse.SUPPRESS)
+    ap.add_argument('--out', help=argparse.SUPPRESS)
+    ap.add_argument('--input', help=argparse.SUPPRESS)
+    ap.add_argument('--output-dir', help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
@@ -1923,6 +2522,8 @@ def main(argv=None) -> int:
         return 2
     os.chdir(REPO)
     sys.path.insert(0, REPO)
+    if args.rank_task:
+        return run_rank_task(args.rank_task, args.out, args)
     seconds = {}
     t0 = time.perf_counter()
 
@@ -1964,12 +2565,18 @@ def main(argv=None) -> int:
         lap('real_index')
         phase_disk_room0(room0)
         lap('disk_room0')
-        phase_overlap(room0)
+        loose_room0 = phase_overlap(room0)
         lap('overlap')
         phase_imap_accuracy()
         lap('imap_accuracy')
         phase_imap_room0()
         lap('imap_room0')
+        phase_parallel_parity()
+        lap('parallel_parity')
+        phase_parallel_tum()
+        lap('parallel_tum')
+        phase_pipeline(room0, loose_room0)
+        lap('pipeline')
         if any(k in sys.modules for k in ('jax', 'nice_slam_tpu')):
             raise AssertionError('the JAX package was imported')
     except Exception:

@@ -15,6 +15,12 @@ CUDA unless `--device cpu` is given.  The run's output directory is
 frame to `metrics.jsonl`, and at the end trajectory.npz (estimated and
 ground-truth c2w) and ate.json.  --resume restarts from the newest
 checkpoint in `ckpts/` (from the first frame when there is none).
+
+Ranks (one process per device, for the `parallel.*` backends) are brought
+up from the JAX package's variables, as run.py does: NSTPU_COORDINATOR
+(host:port of rank 0's rendezvous), NSTPU_NUM_PROCESSES, NSTPU_PROCESS_ID,
+and NSTPU_CPU_SIM=1 for ranks on the CPU (then pass --device cpu).  Every
+rank runs the whole sequence; rank 0 alone writes the output directory.
 """
 
 from __future__ import annotations
@@ -51,29 +57,37 @@ def main() -> None:
 
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     from nice_slam_tpu_torch.eval.ate import evaluate_ate
+    from nice_slam_tpu_torch.parallel.distributed import (
+        initialize_from_env, shutdown)
     from nice_slam_tpu_torch.utils.ckpt import (
         latest_checkpoint, load_checkpoint)
     from nice_slam_tpu_torch.utils.config import load_config
 
     default = 'configs/nice_slam.yaml' if args.nice else 'configs/imap.yaml'
     cfg = load_config(args.config, default)
-    slam = SlamSystem(cfg, nice=args.nice, device=args.device,
-                      seed=args.seed, output=args.output,
-                      input_folder=args.input_folder)
-    print(f'INFO: running on {slam.device}; output folder is {slam.output}')
-    start = 0
-    if args.resume:
-        path = latest_checkpoint(os.path.join(slam.output, 'ckpts'))
-        if path is not None:
-            start = slam.restore(load_checkpoint(path))
-            print(f'INFO: resumed from {path} at frame {start}')
-    slam.run(start)
-    ate = evaluate_ate(slam.estimate_c2w, slam.gt_c2w)
-    print('INFO: done.', json.dumps({**slam.timers.summary(), **ate}))
-    np.savez(os.path.join(slam.output, 'trajectory.npz'),
-             estimate_c2w=slam.estimate_c2w, gt_c2w=slam.gt_c2w)
-    with open(os.path.join(slam.output, 'ate.json'), 'w') as f:
-        json.dump(ate, f, indent=1)
+    initialize_from_env()
+    try:
+        slam = SlamSystem(cfg, nice=args.nice, device=args.device,
+                          seed=args.seed, output=args.output,
+                          input_folder=args.input_folder)
+        print(f'INFO: running on {slam.device}; output folder is '
+              f'{slam.output}')
+        start = 0
+        if args.resume:
+            path = latest_checkpoint(os.path.join(slam.output, 'ckpts'))
+            if path is not None:
+                start = slam.restore(load_checkpoint(path))
+                print(f'INFO: resumed from {path} at frame {start}')
+        slam.run(start)
+        ate = evaluate_ate(slam.estimate_c2w, slam.gt_c2w)
+        print('INFO: done.', json.dumps({**slam.timers.summary(), **ate}))
+        if slam.writes:
+            np.savez(os.path.join(slam.output, 'trajectory.npz'),
+                     estimate_c2w=slam.estimate_c2w, gt_c2w=slam.gt_c2w)
+            with open(os.path.join(slam.output, 'ate.json'), 'w') as f:
+                json.dump(ate, f, indent=1)
+    finally:
+        shutdown()
 
 
 if __name__ == '__main__':

@@ -1,5 +1,5 @@
 """Mapping (L3): joint grid / decoder / pose optimization; port of
-`nice_slam_tpu/engine/mapper.py` (NICE and iMAP*, one device).
+`nice_slam_tpu/engine/mapper.py` (NICE and iMAP*).
 
 Each iteration draws pixels from every frame of the keyframe window, renders
 the stage the schedule picks (middle -> fine -> color by iteration
@@ -17,11 +17,19 @@ iMAP* has no volumes: every iteration renders like the color stage, with
 no bounding-box mask, at the rate `imap_decoders_lr` decayed by StepLR(200,
 0.8), and adds the free-space regulation 0.0005 * sum |sigma| over
 densities drawn in [0, 0.85 d] for every window frame.
+
+`map_iterations` is the per-call loop that the single-rank step
+(`map_step`) and the parallel steps of `parallel/` share (the JAX
+package's `build_stage_losses` + `scan_map_iters`): they differ only in
+which rays a rank draws and renders and in how the loss, the gradients and
+the far clamp's maximum are combined over the ranks.  With perturb > 0
+each iteration also draws the renderer's jitter and importance uniforms
+(`draw_map_iteration`).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Sequence
+from typing import Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -132,6 +140,47 @@ def draw_window_pixels(n_frames: int, pix_per_frame: int, intr: Intrinsics,
     return i.float(), j.float()
 
 
+class MapDraws(NamedTuple):
+    """One mapping iteration's random inputs for F window frames: pixels
+    (i, j) [F, P]; with perturb > 0 the stratified jitter `t_rand` [F, P,
+    n_samples] and the importance uniforms `u_imp` [F, P, n_importance];
+    with density compositing the regulation's jitter `reg` [F, P,
+    n_samples].  Each is None where the render draws nothing."""
+
+    i: torch.Tensor
+    j: torch.Tensor
+    t_rand: torch.Tensor | None = None
+    u_imp: torch.Tensor | None = None
+    reg: torch.Tensor | None = None
+
+    def frames(self, sl: slice) -> 'MapDraws':
+        """The draws of window frames `sl`."""
+        return MapDraws(*(None if x is None else x[sl] for x in self))
+
+
+def draw_map_iteration(n_frames: int, pix_per_frame: int, intr: Intrinsics,
+                       rcfg: RenderConfig, *, generator: torch.Generator,
+                       device) -> MapDraws:
+    """One iteration's draws from `generator`, in a fixed order: the
+    pixels, then (perturb > 0) the stratified jitter and the importance
+    uniforms, then (density compositing) the regulation's jitter."""
+    i, j = draw_window_pixels(n_frames, pix_per_frame, intr,
+                              generator=generator, device=device)
+    shape = (n_frames, pix_per_frame)
+
+    def uniforms(n):
+        return torch.rand(shape + (n,), generator=generator, device=device)
+
+    t_rand = u_imp = reg = None
+    if rcfg.perturb > 0:
+        t_rand = uniforms(rcfg.n_samples)
+        if rcfg.n_importance > 0:
+            u_imp = uniforms(rcfg.n_importance)
+    if not rcfg.occupancy:
+        reg = uniforms(rcfg.n_samples)
+    return MapDraws(i, j, t_rand, u_imp, reg)
+
+
 def window_rays(cams: torch.Tensor, colors: torch.Tensor,
                 depths: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
                 intr: Intrinsics):
@@ -163,31 +212,35 @@ def _frame_groups(mcfg: MapperConfig, n_frames: int, pix_per_frame: int
     return groups
 
 
-def map_step(decoders: Mapping[str, nn.Module], grids: dict,
-             cams: torch.Tensor, *, trainable: Sequence[str],
-             masks: Mapping[str, torch.Tensor] | None,
-             cam_mask: torch.Tensor | None, lr_tab: np.ndarray,
-             stage_idx: np.ndarray, colors: torch.Tensor,
-             depths: torch.Tensor, model: SceneModel, rcfg: RenderConfig,
-             mcfg: MapperConfig, intr: Intrinsics, pix_per_frame: int,
-             draws: Sequence[tuple[torch.Tensor, torch.Tensor]]
-             | None = None,
-             reg_jitter: Sequence[torch.Tensor] | None = None,
-             generator: torch.Generator | None = None):
-    """One mapping call: len(lr_tab) iterations with one Adam state.
+def map_iterations(decoders: Mapping[str, nn.Module], grids: dict,
+                   cams: torch.Tensor, *, trainable: Sequence[str],
+                   masks: Mapping[str, torch.Tensor] | None,
+                   cam_mask: torch.Tensor | None, lr_tab: np.ndarray,
+                   stage_idx: np.ndarray, colors: torch.Tensor,
+                   depths: torch.Tensor, model: SceneModel,
+                   rcfg: RenderConfig, mcfg: MapperConfig, intr: Intrinsics,
+                   pix_per_frame: int, draw: Callable[[int], MapDraws],
+                   frames: slice | None = None,
+                   reduce: Callable | None = None,
+                   reduce_max: Callable | None = None,
+                   prepare: Callable | None = None):
+    """The iterations of one mapping call, shared by the single-rank step
+    (`map_step`) and the parallel ones (`parallel/`): per iteration the
+    window loss of the rays this rank renders, its gradient over the
+    leaves, and one masked Adam step.
 
-    grids: {name: flat [M, C] leaf tensor} ({} for iMAP*), updated in
-    place; the decoders named in `trainable` are updated in place too.
-    cams: [F, 7] window poses; cam_mask: [F] 0/1 trainable-pose mask, or
-    None when the poses are constants (no BA).  masks: {name: [M, 1] 0/1}
-    frustum masks or None.  draws: optional per-iteration (i, j) [F, P]
-    pixel indices; reg_jitter: optional per-iteration [F, P, n_samples]
-    uniforms of the regulation's jitter (density compositing only);
-    without them each iteration draws from `generator`.
-    Returns (cams [F, 7] after the call, losses [n_iters]).
+    draw(it): the iteration's `MapDraws` for the frames this rank renders.
+    frames: the window frames this rank renders (`colors` / `depths` hold
+    exactly those; `cams` is the whole window); all by default.
+    reduce(losses_and_grads): the list [loss, *grads] summed over the ranks
+    that share the step (None entries stay None); reduce_max(d_max): the
+    far clamp's maximum over the ranks that split the window; prepare(grids,
+    stage): what the renderer samples (default: the corner expansion of the
+    volumes the stage reads, rebuilt every iteration; backward = the fold).
+    The other arguments are `map_step`'s.
     """
     nice = model.kind == 'nice'
-    n_frames = cams.shape[0]
+    n_frames = colors.shape[0]
     names = list(grids)
     cams = cams.detach().clone().requires_grad_(cam_mask is not None)
     dec_params = [(name, p) for name in trainable
@@ -200,17 +253,16 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
     opt = MaskedAdam(leaves)
     groups = _frame_groups(mcfg, n_frames, pix_per_frame)
     frames_per_group = n_frames // groups
+    if prepare is None:
+        def prepare(g, stage):
+            return prepare_grids(g, model.grid_shapes, stage=stage)
 
     losses = []
     for it in range(len(lr_tab)):
         stage = STAGE_ORDER[int(stage_idx[it])]
-        if draws is not None:
-            i, j = draws[it]
-        else:
-            i, j = draw_window_pixels(n_frames, pix_per_frame, intr,
-                                      generator=generator,
-                                      device=cams.device)
-        o, d, dgt, cgt = window_rays(cams, colors, depths, i, j, intr)
+        dr = draw(it)
+        o, d, dgt, cgt = window_rays(cams if frames is None else cams[frames],
+                                     colors, depths, dr.i, dr.j, intr)
         # bbox prefilter (NICE) as a mask; the far clamp takes the maximum
         # over the whole window's (filtered) depths
         if nice:
@@ -220,15 +272,12 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
             inside = torch.ones_like(dgt, dtype=torch.bool)
         d_render = torch.where(inside, dgt, torch.zeros_like(dgt))
         d_max = torch.amax(d_render)
+        if reduce_max is not None:
+            d_max = reduce_max(d_max)
         use_depth = stage != 'coarse'
-        # rebuilt every iteration; backward = the fold
-        exp = (prepare_grids(grids, model.grid_shapes, stage=stage) if nice
-               else grids)
-        jitter = None
-        if not rcfg.occupancy:
-            jitter = (reg_jitter[it] if reg_jitter is not None else
-                      torch.rand((n_frames, pix_per_frame, rcfg.n_samples),
-                                 generator=generator, device=cams.device))
+        exp = prepare(grids, stage) if nice else grids
+        t_rand, u_imp = (None if x is None else x.reshape(-1, x.shape[-1])
+                         for x in (dr.t_rand, dr.u_imp))
 
         grads, loss = None, 0.0
         n_rays = frames_per_group * pix_per_frame
@@ -237,7 +286,8 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
             depth, _, color, _ = render_rays(
                 decoders, exp, o[sl], d[sl], stage=stage, model=model,
                 rcfg=rcfg, gt_depth=d_render[sl] if use_depth else None,
-                d_max=d_max)
+                d_max=d_max, t_rand=None if t_rand is None else t_rand[sl],
+                u_imp=None if u_imp is None else u_imp[sl])
             depth_mask = (dgt[sl] > 0) & inside[sl]
             err = torch.abs(dgt[sl] - depth)
             loss_g = torch.sum(torch.where(depth_mask, err,
@@ -246,14 +296,14 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
                 col = torch.abs(cgt[sl] - color)
                 loss_g = loss_g + mcfg.w_color_loss * torch.sum(
                     torch.where(inside[sl, None], col, torch.zeros_like(col)))
-            if jitter is not None:
+            if dr.reg is not None:
                 # the free-space regulation over this group's frames
                 fs = slice(g * frames_per_group, (g + 1) * frames_per_group)
                 shape = (frames_per_group, pix_per_frame)
                 sigma = regulation_sigma_batched(
                     decoders, exp, o[sl].reshape(shape + (3,)),
                     d[sl].reshape(shape + (3,)), d_render[sl].reshape(shape),
-                    model=model, rcfg=rcfg, t_rand=jitter[fs], stage=stage)
+                    model=model, rcfg=rcfg, t_rand=dr.reg[fs], stage=stage)
                 loss_g = loss_g + 0.0005 * torch.sum(torch.abs(sigma))
             g_grads = torch.autograd.grad(loss_g, leaves, allow_unused=True,
                                           retain_graph=g < groups - 1)
@@ -261,6 +311,9 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
                 a if b is None else (b if a is None else a + b)
                 for a, b in zip(grads, g_grads)]
             loss = loss + loss_g.detach()
+        if reduce is not None:
+            loss, *grads = reduce([loss, *grads])
+            loss = loss.clone()   # not a view of the summed gradients
 
         row = lr_tab[it]
         lrs = ([float(row[LR_CAM])] if cam_mask is not None else []) \
@@ -270,3 +323,57 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
         opt.step(grads, lrs, leaf_masks)
         losses.append(loss)
     return cams.detach(), torch.stack(losses)
+
+
+def as_map_draws(draw, reg=None) -> MapDraws:
+    """A `MapDraws` from one given iteration's draws: a `MapDraws`, or an
+    (i, j) pair with the regulation's jitter `reg` beside it."""
+    if isinstance(draw, MapDraws):
+        return draw
+    i, j = draw
+    return MapDraws(i, j, reg=reg)
+
+
+def map_step(decoders: Mapping[str, nn.Module], grids: dict,
+             cams: torch.Tensor, *, trainable: Sequence[str],
+             masks: Mapping[str, torch.Tensor] | None,
+             cam_mask: torch.Tensor | None, lr_tab: np.ndarray,
+             stage_idx: np.ndarray, colors: torch.Tensor,
+             depths: torch.Tensor, model: SceneModel, rcfg: RenderConfig,
+             mcfg: MapperConfig, intr: Intrinsics, pix_per_frame: int,
+             draws: Sequence | None = None,
+             reg_jitter: Sequence[torch.Tensor] | None = None,
+             generator: torch.Generator | None = None):
+    """One mapping call: len(lr_tab) iterations with one Adam state.
+
+    grids: {name: flat [M, C] leaf tensor} ({} for iMAP*), updated in
+    place; the decoders named in `trainable` are updated in place too.
+    cams: [F, 7] window poses; cam_mask: [F] 0/1 trainable-pose mask, or
+    None when the poses are constants (no BA).  masks: {name: [M, 1] 0/1}
+    frustum masks or None.  draws: optional per-iteration `MapDraws`, or
+    (i, j) [F, P] pixel indices with the regulation's jitter in
+    `reg_jitter` (per-iteration [F, P, n_samples] uniforms, density
+    compositing only); without them each iteration draws from `generator`
+    (`draw_map_iteration`).
+    Returns (cams [F, 7] after the call, losses [n_iters]).
+    """
+    n_frames = cams.shape[0]
+
+    def draw(it):
+        if draws is None:
+            return draw_map_iteration(n_frames, pix_per_frame, intr, rcfg,
+                                      generator=generator,
+                                      device=cams.device)
+        dr = as_map_draws(draws[it], None if reg_jitter is None
+                          else reg_jitter[it])
+        if dr.reg is None and not rcfg.occupancy:
+            dr = dr._replace(reg=torch.rand(
+                (n_frames, pix_per_frame, rcfg.n_samples),
+                generator=generator, device=cams.device))
+        return dr
+
+    return map_iterations(
+        decoders, grids, cams, trainable=trainable, masks=masks,
+        cam_mask=cam_mask, lr_tab=lr_tab, stage_idx=stage_idx,
+        colors=colors, depths=depths, model=model, rcfg=rcfg, mcfg=mcfg,
+        intr=intr, pix_per_frame=pix_per_frame, draw=draw)

@@ -1,5 +1,5 @@
 """Single-controller SLAM orchestrator (L4); port of
-`nice_slam_tpu/engine/slam.py` (NICE and iMAP* modes, one device):
+`nice_slam_tpu/engine/slam.py` (NICE and iMAP* modes):
 
     map(0, iters_first) [+ coarse map]; then for every frame idx >= 1:
         track(idx); if idx % map_cadence == 0 or idx is the last frame:
@@ -24,8 +24,10 @@ frame the tracker adopts the newest finished round's snapshot, and under
 every_frame + every_frame // 2 frames behind the frame it tracks (the
 reference's loose gate).  `free` has no gate.  Rounds with BA active
 commit on the main thread in every mode, after the queued rounds.  `free`
-runs `loose` on one device unless `sync_force_free: true`; the JAX
-package's two-device pipeline (mapping on a second device) is not ported.
+runs `loose` on one card unless `sync_force_free: true`.  With two or more
+cards (and one rank) the overlapped modes run the two-device pipeline: the
+map, the mapping rounds, their stream and generator live on the second
+card, and each round's tracking snapshot is copied to the tracker's.
 Everything that reads the map (checkpoints, meshes, the invariant checks,
 the end of the run) waits for the queued rounds first, and an error raised
 inside a round is raised there or where the tracker adopts the round.
@@ -36,13 +38,27 @@ trainable decoders and (with BA) the keyframe poses; the coarse mapper
 owns the coarse volume and its own keyframe list.  Frames come through a
 Prefetcher (io/prefetch.py) during `run()`.
 
+The parallel backends (`parallel.*`; parallel/): a run's ranks
+(`world`, one process each, parallel/distributed.py) each hold the whole
+replicated state and track every frame.  `parallel.track: rays` shares each
+tracking iteration's rays over the ranks; `parallel.map: rays` shares the
+mapping rays (each rank draws its own), `parallel.map: kf` the window's
+frames (the window padded by cycling frames to a multiple of the ranks;
+each rank uploads only its frames); the sums over the ranks leave every
+rank the same bits.  With more than one rank the mesher's lattice query is
+split over them too, meshes run on the main thread, and only `strict`
+runs (the overlapped modes adopt rounds by thread timing, which would part
+the ranks).  In a world of one every backend runs the single-device
+program bit for bit.
+
 Services after each mapped frame, as in the JAX package: a checkpoint
 every `ckpt_freq` frames and at the last frame (`<output>/ckpts/`), a mesh
 every `mesh_freq` frames (on a background thread when `meshing.async`), the
 final mesh and, with `meshing.eval_rec`, the evaluation mesh
 (`<output>/mesh/`); one line per frame in `<output>/metrics.jsonl`; with
 `mapping.save_selected_keyframes_info`, the window of every mapping call
-(`selected_keyframes`, checkpointed).  Visualization is not ported yet:
+(`selected_keyframes`, checkpointed).  Rank 0 alone writes them.
+Visualization is not ported yet:
 `utils/config.check_options` warns about its keys, and refuses the
 options of modules that are not ported.
 """
@@ -78,6 +94,8 @@ from nice_slam_tpu_torch.models.decoders import (
 from nice_slam_tpu_torch.models.grids import (
     grid_world_coords, init_grids, prepare_grids, static_grid_shapes)
 from nice_slam_tpu_torch.ops.trilinear import ExpandedGrid
+from nice_slam_tpu_torch.parallel import distributed as pdist
+from nice_slam_tpu_torch.parallel.sharded import ray_sharded_map_step
 from nice_slam_tpu_torch.render.renderer import SceneModel
 from nice_slam_tpu_torch.utils import config as cfgutil
 from nice_slam_tpu_torch.utils.ckpt import save_checkpoint
@@ -165,12 +183,37 @@ class SlamSystem:
     def __init__(self, cfg: dict, *, nice: bool = True, device=None,
                  seed: int = 0, verbose: bool | None = None,
                  output: str | None = None, input_folder: str | None = None,
-                 frame_reader=None):
+                 frame_reader=None, world=None):
         """`input_folder` overrides the config's `data.input_folder` (the
         sequence's directory); `frame_reader` replaces the config's loader
-        (an index-addressable reader of (index, color, depth, c2w))."""
+        (an index-addressable reader of (index, color, depth, c2w)).
+        `world`: the ranks of the run (parallel/mesh.RankGroup); by default
+        the world this process joined (parallel/distributed.initialize), or
+        a world of one."""
         cfgutil.check_options(cfg)
-        self.device = resolve_device(device)
+        pcfg = cfg.get('parallel') or {}
+        self.par_map = pcfg.get('map', 'none')
+        self.par_track = pcfg.get('track', 'none')
+        if self.par_map not in ('none', 'kf', 'rays'):
+            raise ValueError(f'parallel.map: {self.par_map!r}')
+        if self.par_track not in ('none', 'rays'):
+            raise ValueError(f'parallel.track: {self.par_track!r}')
+        self.world = (world if world is not None
+                      else pdist.process_world(resolve_device(device)))
+        if self.world.size > 1:
+            # a rank runs on its own device
+            if (device is not None and torch.device(device).type
+                    != self.world.device.type):
+                raise ValueError(f'device {device} on a rank of '
+                                 f'{self.world.device.type}')
+            self.device = self.world.device
+        else:
+            self.device = resolve_device(device)
+        n_par = int(pcfg.get('devices', 0) or 0)
+        if n_par and n_par != self.world.size:
+            # one rank is one device; 0 means all of them
+            raise ValueError(f'parallel.devices: {n_par} does not match '
+                             f'the world of {self.world.size} rank(s)')
         # true f32 matmuls: reduced-precision passes destabilize the pose
         # optimization over long sequences (the JAX package pins the same)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -181,8 +224,12 @@ class SlamSystem:
         self.verbose = (cfg.get('verbose', False) if verbose is None
                         else verbose)
         self.output = output or cfg['data'].get('output', 'output/run')
-        for sub in ('ckpts', 'mesh'):
-            os.makedirs(os.path.join(self.output, sub), exist_ok=True)
+        # every rank holds the same state: rank 0 alone writes the
+        # checkpoints, meshes and metrics
+        self.writes = self.world.rank == 0
+        if self.writes:
+            for sub in ('ckpts', 'mesh'):
+                os.makedirs(os.path.join(self.output, sub), exist_ok=True)
         self.metrics_path = os.path.join(self.output, 'metrics.jsonl')
         self.intr = cfgutil.intrinsics_from_cfg(cfg)
         self.rcfg = cfgutil.render_config_from_cfg(cfg)
@@ -190,6 +237,11 @@ class SlamSystem:
         self.gcfg = cfgutil.grid_config_from_cfg(cfg)
         self.tcfg = cfgutil.tracker_config_from_cfg(cfg)
         self.mcfg = cfgutil.mapper_config_from_cfg(cfg)
+        if self.par_track == 'rays' and self.tcfg.pixels % self.world.size:
+            raise ValueError(
+                f'parallel.track: rays needs tracking.pixels '
+                f'({self.tcfg.pixels}) divisible by the number of ranks '
+                f'({self.world.size})')
         # the method lives in model.kind alone (`self.nice` reads it)
         self.model = SceneModel(
             decoder=self.dcfg,
@@ -226,7 +278,18 @@ class SlamSystem:
         self.sync_method = cfg.get('sync_method', 'strict')
         if self.sync_method not in ('strict', 'loose', 'free'):
             raise ValueError(f'sync_method {self.sync_method!r}')
-        if self.sync_method == 'free' and not bool(
+        if self.sync_method != 'strict' and self.world.size > 1:
+            # each rank would adopt the queued rounds at frames its own
+            # thread timing picks, so the ranks' poses would part
+            raise ValueError(
+                f'sync_method: {self.sync_method!r} runs on one rank only '
+                f'(this world has {self.world.size}): the ranks would adopt '
+                f'the mapping rounds at different frames')
+        if self.device.type == 'cuda' and self.device.index is None:
+            self.device = torch.device('cuda', torch.cuda.current_device())
+        cards = (torch.cuda.device_count() if self.device.type == 'cuda'
+                 else 1)
+        if self.sync_method == 'free' and cards < 2 and not bool(
                 cfg.get('sync_force_free', False)):
             # as in the JAX package on one local device: ungated back-to-
             # back mapping rounds replace the tracker's snapshot every frame
@@ -238,25 +301,52 @@ class SlamSystem:
                 "sync_force_free: true to override", UserWarning,
                 stacklevel=2)
             self.sync_method = 'loose'
+        # the overlapped modes map on a thread of their own, on a stream of
+        # their own, drawing pixels from a generator of their own; with a
+        # second card (a world of one) the mapper owns it: the map, the
+        # mapping operands and the mapper's generator and stream live
+        # there, and each round's tracking snapshot is copied to the
+        # tracker's card (the two-device pipeline)
+        self._overlap = self.sync_method != 'strict'
+        self.map_device = self.device
+        if self._overlap and cards >= 2:
+            self.map_device = torch.device(
+                'cuda', (self.device.index + 1) % cards)
+        self.map_model = self.model
+        if self.map_device != self.device:
+            self.map_model = self.model._replace(
+                bound=self.model.bound.to(self.map_device),
+                coarse_bound=(None if self.model.coarse_bound is None else
+                              self.model.coarse_bound.to(self.map_device)))
 
-        dev = self.device
+        dev, map_dev = self.device, self.map_device
         # the initial grids and decoders are drawn on the CPU, so a seed
         # gives the same initial model on every device; pixel draws come
         # from a generator on the run's device
         init_gen = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.np_rng = np.random.default_rng(seed)
-        # the overlapped modes map on a thread of their own, on a stream of
-        # their own, drawing pixels from a generator of their own
-        self._overlap = self.sync_method != 'strict'
         self.map_generator = self.generator
         self._map_stream = None
         if self._overlap:
+            self.map_generator = torch.Generator(
+                device=map_dev).manual_seed(seed + _MAP_SEED_OFFSET)
+            if map_dev.type == 'cuda':
+                self._map_stream = torch.cuda.Stream(map_dev)
+        elif self.par_map == 'rays' and self.world.size > 1:
+            # each rank draws its own mapping rays; the tracking draws stay
+            # in step over the ranks
             self.map_generator = torch.Generator(device=dev).manual_seed(
-                seed + _MAP_SEED_OFFSET)
-            if dev.type == 'cuda':
-                self._map_stream = torch.cuda.Stream(dev)
+                seed + _MAP_SEED_OFFSET + self.world.rank)
         self._map_pool = None
+        # the groups the parallel steps run on: one per thread that runs
+        # collectives (the tracker, the mapper, the mesher)
+        one = self.world.size == 1
+        self._track_group = (self.world if one or self.par_track == 'none'
+                             else self.world.copy('track'))
+        self._map_group = (self.world if one or self.par_map == 'none'
+                           else self.world.copy('map'))
+        self._mesh_group = None if one else self.world.copy('mesh')
         # the queued mapping rounds, oldest first: (frame, future of the
         # round's tracking snapshot); and the frame of the round (or
         # commit) the tracker's snapshot comes from.  `refreshes` counts
@@ -270,7 +360,7 @@ class SlamSystem:
             # one decoder, no volumes
             self.grids = {}
             self.decoders = torch.nn.ModuleDict({'imap': init_imap_decoder(
-                self.dcfg, generator=init_gen, device='cpu')}).to(dev)
+                self.dcfg, generator=init_gen, device='cpu')}).to(map_dev)
             self.trainable = {'imap'}
         else:
             self._init_nice(cfg, init_gen)
@@ -282,19 +372,26 @@ class SlamSystem:
         self.gt_c2w = np.zeros((self.n_img, 4, 4), dtype=np.float32)
         self.keyframes = KeyframeStore()
         self.coarse_keyframes = KeyframeStore()
-        self._frames: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        # (frame, device) -> the frame's color and depth on that device
+        self._frames: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+        # the frustum masks' node coordinates live with the mapper
         self._grid_points = {
             name: torch.tensor(
                 grid_world_coords(self.gcfg, name).reshape(-1, 3),
-                device=dev)
+                device=map_dev)
             for name in self.grids}
         # what the tracker renders against, kept until the next mapping
         # commit: (decoders, color-stage expansion of the volumes)
         self._tracking_grids = None
         self.timers = PhaseTimers()
         self.mapping_idx = -1
-        self.mesher = Mesher(cfgutil.mesher_config_from_cfg(cfg), self.model,
-                             self.intr, rcfg=self.rcfg)
+        # the mesher reads the map where it lives; with more than one rank
+        # its lattice query is split over them (and runs on this thread)
+        self.mesher = Mesher(cfgutil.mesher_config_from_cfg(cfg),
+                             self.map_model, self.intr, rcfg=self.rcfg,
+                             group=self._mesh_group)
+        if not one:
+            self.mesh_async = False
 
     @property
     def nice(self) -> bool:
@@ -303,8 +400,9 @@ class SlamSystem:
 
     def _init_nice(self, cfg: dict, init_gen: torch.Generator) -> None:
         """The volumes, the NICE decoders (pretrained ones when their files
-        exist) and the set of decoders the mapper trains."""
-        dev = self.device
+        exist) and the set of decoders the mapper trains, on the mapper's
+        device."""
+        dev = self.map_device
         self.grids = {
             name: g.to(dev).requires_grad_(True)
             for name, g in init_grids(self.gcfg, generator=init_gen,
@@ -338,35 +436,48 @@ class SlamSystem:
     # helpers
     # ------------------------------------------------------------------
 
-    def _device_frame(self, idx: int, color_np, depth_np):
-        if idx not in self._frames:
-            self._frames[idx] = (
+    def _device_frame(self, idx: int, color_np, depth_np, device=None):
+        """Frame idx's color and depth on `device` (the tracker's by
+        default), uploaded once."""
+        device = self.device if device is None else device
+        key = (idx, device)
+        if key not in self._frames:
+            self._frames[key] = (
                 torch.as_tensor(color_np, dtype=torch.float32,
-                                device=self.device),
+                                device=device),
                 torch.as_tensor(depth_np, dtype=torch.float32,
-                                device=self.device))
-        return self._frames[idx]
+                                device=device))
+        return self._frames[key]
 
-    def _cam7(self, c2w_np: np.ndarray) -> torch.Tensor:
+    def _cam7(self, c2w_np: np.ndarray, device=None) -> torch.Tensor:
         return tensor_from_c2w(torch.as_tensor(
             np.asarray(c2w_np[:3, :4], dtype=np.float32),
-            device=self.device))
+            device=self.device if device is None else device))
 
-    def _sync(self) -> None:
-        """Wait for the calling thread's stream (the mapping thread's own
-        under the overlapped modes)."""
-        if self.device.type == 'cuda':
-            torch.cuda.current_stream(self.device).synchronize()
+    def _sync(self, device=None) -> None:
+        """Wait for the calling thread's stream on `device` (the tracker's
+        by default; the mapping thread's own under the overlapped
+        modes)."""
+        device = self.device if device is None else device
+        if device.type == 'cuda':
+            torch.cuda.current_stream(device).synchronize()
 
     def _build_snapshot(self):
         """(decoders, color-stage expansion of the volumes) of the current
         map.  The overlapped modes clone the decoders: the next mapping
         round updates them in place while the tracker renders."""
         with torch.no_grad():
-            grids = (prepare_grids(self.grids, self.model.grid_shapes,
+            grids, decoders = self.grids, self.decoders
+            if self._overlap:
+                decoders = copy.deepcopy(decoders)
+            if self.map_device != self.device:
+                # the two-device pipeline: the snapshot goes to the
+                # tracker's card
+                grids = {k: g.detach().to(self.device)
+                         for k, g in grids.items()}
+                decoders = decoders.to(self.device)
+            grids = (prepare_grids(grids, self.model.grid_shapes,
                                    stage='color') if self.nice else {})
-            decoders = (copy.deepcopy(self.decoders) if self._overlap
-                        else self.decoders)
         return decoders, grids
 
     @property
@@ -438,7 +549,9 @@ class SlamSystem:
             best_cam7, _, losses = track_frame(
                 decoders, grids, color, depth,
                 self._cam7(guess), model=self.model, rcfg=self.rcfg,
-                tcfg=self.tcfg, intr=self.intr, generator=self.generator)
+                tcfg=self.tcfg, intr=self.intr, generator=self.generator,
+                group=(self._track_group if self.par_track == 'rays'
+                       else None))
             c2w = np.eye(4, dtype=np.float32)
             c2w[:3, :4] = c2w_from_tensor_4x4(
                 best_cam7).detach().cpu().numpy()[:3, :4]
@@ -472,11 +585,12 @@ class SlamSystem:
 
     def _frustum_masks(self, cur_c2w: np.ndarray, depth: torch.Tensor):
         c2w = torch.as_tensor(cur_c2w, dtype=torch.float32,
-                              device=self.device)
+                              device=self.map_device)
         masks = {}
         for name, g in self.grids.items():
             if name == 'coarse':
-                masks[name] = torch.ones((g.shape[0], 1), device=self.device)
+                masks[name] = torch.ones((g.shape[0], 1),
+                                         device=self.map_device)
             else:
                 masks[name] = frustum_mask(self._grid_points[name], c2w,
                                            depth, self.intr)[:, None]
@@ -491,8 +605,9 @@ class SlamSystem:
         t0 = time.perf_counter()
         mcfg = self.coarse_mcfg if coarse else self.mcfg
         store = self.coarse_keyframes if coarse else self.keyframes
-        color, depth = (frame if frame is not None
-                        else self._device_frame(idx, color_np, depth_np))
+        mdev = self.map_device
+        color, depth = (frame if frame is not None else self._device_frame(
+            idx, color_np, depth_np, device=mdev))
         cur_c2w = (self.estimate_c2w[idx].copy() if cur_c2w is None
                    else cur_c2w.copy())
 
@@ -535,22 +650,31 @@ class SlamSystem:
                     for p in sel] + [{'idx': idx,
                                       'gt_c2w': np.asarray(gt_c2w_np),
                                       'est_c2w': cur_c2w.copy()}]
+            # keyframe sharding keeps the window's images on the host here:
+            # each rank uploads only its frames below
+            kf_par = self.par_map == 'kf'
             colors, depths, cam7s, cam_mask = [], [], [], []
             for pos in sel:
                 kf = store.frames[pos]
-                c, d = self._device_frame(kf.idx, kf.color, kf.depth)
+                c, d = ((kf.color, kf.depth) if kf_par else
+                        self._device_frame(kf.idx, kf.color, kf.depth,
+                                           device=mdev))
                 colors.append(c)
                 depths.append(d)
-                cam7s.append(self._cam7(kf.est_c2w))
+                cam7s.append(self._cam7(kf.est_c2w, mdev))
                 cam_mask.append(0.0 if pos == oldest else 1.0)
-            colors.append(color)
-            depths.append(depth)
-            cam7s.append(self._cam7(cur_c2w))
+            colors.append(color_np if kf_par else color)
+            depths.append(depth_np if kf_par else depth)
+            cam7s.append(self._cam7(cur_c2w, mdev))
             cam_mask.append(1.0)
             real_n = len(colors)
             # pad the window to its full size by cycling the real frames,
-            # newest first; the padding slots' poses are frozen
+            # newest first; the padding slots' poses are frozen.  A sharded
+            # window's frame count is a multiple of the ranks
             n_frames = max(window_size, real_n)
+            if self.par_map != 'none':
+                n_frames = -(-n_frames // self._map_group.size) \
+                    * self._map_group.size
             for k in range(n_frames - real_n):
                 src = real_n - 1 - (k % real_n)
                 colors.append(colors[src])
@@ -558,21 +682,40 @@ class SlamSystem:
                 cam7s.append(cam7s[src])
                 cam_mask.append(0.0)
 
-            cams, losses = map_step(
-                self.decoders, self.grids, torch.stack(cam7s),
+            kw = dict(
                 trainable=trainable,
                 masks=(self._frustum_masks(cur_c2w, depth)
                        if frustum_on else None),
-                cam_mask=(torch.tensor(cam_mask, device=self.device)
+                cam_mask=(torch.tensor(cam_mask, device=mdev)
                           if ba else None),
                 lr_tab=lr_table(mcfg_eff, n_iters, lr_factor, ba,
                                 nice=self.nice),
                 stage_idx=stage_schedule(mcfg_eff, n_iters, nice=self.nice),
-                colors=torch.stack(colors), depths=torch.stack(depths),
-                model=self.model, rcfg=self.rcfg, mcfg=mcfg_eff,
+                model=self.map_model, rcfg=self.rcfg, mcfg=mcfg_eff,
                 intr=self.intr,
                 pix_per_frame=max(mcfg.pixels // n_frames, 1),
                 generator=self.map_generator)
+            if kf_par:
+                mine = pdist.window_slice(n_frames, self._map_group)
+
+                def upload(frames):
+                    return torch.as_tensor(np.stack(frames[mine]),
+                                           dtype=torch.float32, device=mdev)
+
+                cams, losses = pdist.kf_sharded_map_step(
+                    self.decoders, self.grids, torch.stack(cam7s),
+                    group=self._map_group, colors=upload(colors),
+                    depths=upload(depths), **kw)
+            elif self.par_map == 'rays':
+                cams, losses = ray_sharded_map_step(
+                    self.decoders, self.grids, torch.stack(cam7s),
+                    group=self._map_group, colors=torch.stack(colors),
+                    depths=torch.stack(depths), **kw)
+            else:
+                cams, losses = map_step(
+                    self.decoders, self.grids, torch.stack(cam7s),
+                    colors=torch.stack(colors), depths=torch.stack(depths),
+                    **kw)
             if ba:
                 new_cams = c2w_from_tensor_4x4(cams).cpu().numpy()
                 for slot, pos in enumerate(sel):
@@ -592,7 +735,7 @@ class SlamSystem:
                     idx=idx, color=color_np, depth=depth_np,
                     est_c2w=cur_c2w.copy(), gt_c2w=np.asarray(gt_c2w_np)))
 
-        self._sync()
+        self._sync(mdev)
         if not coarse:
             self.mapping_idx = idx
         kind = ('coarse' if coarse else 'first' if first
@@ -617,13 +760,14 @@ class SlamSystem:
                 self.map_frame(idx, color_np, depth_np, gt_c2w_np, **kw)
             self._tracking_grids = None   # the snapshot is stale
             return
-        frame = self._device_frame(idx, color_np, depth_np)
+        frame = self._device_frame(idx, color_np, depth_np,
+                                   device=self.map_device)
         cur_c2w = self.estimate_c2w[idx].copy()
         if self._map_stream is not None:
             # the round reads what this stream uploaded; the frame tensors
             # are used on the mapping stream
             self._map_stream.wait_stream(
-                torch.cuda.current_stream(self.device))
+                torch.cuda.current_stream(self.map_device))
             for t in frame:
                 t.record_stream(self._map_stream)
         if self._map_pool is None:
@@ -647,15 +791,19 @@ class SlamSystem:
         """Body of an overlapped mapping round, on the mapping thread:
         the calls, then the next tracking snapshot; returns it once the
         mapping stream has finished both."""
-        stream = (torch.cuda.stream(self._map_stream)
-                  if self._map_stream is not None
-                  else contextlib.nullcontext())
-        with stream:
+        on_card = self._map_stream is not None
+        with (torch.cuda.device(self.map_device) if on_card
+              else contextlib.nullcontext()), \
+                (torch.cuda.stream(self._map_stream) if on_card
+                 else contextlib.nullcontext()):
             for kw in calls:
                 self.map_frame(idx, color_np, depth_np, gt_c2w_np,
                                frame=frame, cur_c2w=cur_c2w, **kw)
             snapshot = self._build_snapshot()
-            self._sync()
+            self._sync(self.map_device)
+            if self.map_device != self.device:
+                # the snapshot's copy and expansion on the tracker's card
+                self._sync(self.device)
         return snapshot
 
     def join_map(self) -> None:
@@ -693,7 +841,12 @@ class SlamSystem:
             state['map_generator_state'] = self.map_generator.get_state()
         return state
 
-    def save_ckpt(self, idx: int) -> str:
+    def save_ckpt(self, idx: int) -> str | None:
+        """Write the checkpoint of frame idx (rank 0 only: the ranks'
+        states are the same); returns its path, or None on another
+        rank."""
+        if not self.writes:
+            return None
         path = os.path.join(self.output, 'ckpts', f'{idx:05d}.ckpt')
         save_checkpoint(path, self.checkpoint_state(),
                         compress_images=self.ckpt_compress)
@@ -747,13 +900,16 @@ class SlamSystem:
         while the SLAM loop goes on; final meshes block.  One mesh in
         flight at a time.  The mapper updates the grids, the decoders and
         the keyframe poses in place, so an async mesh works on copies made
-        here, on the current stream, before it starts."""
+        here, on the current stream, before it starts.  With more than one
+        rank every rank extracts (the lattice query is split over them)
+        and rank 0 writes the file; the others return None."""
         if self.mesher is None:
             return None
         self.join_mesh()
         self.join_map()
         name = 'final_mesh.ply' if final else f'{idx:05d}_mesh.ply'
-        path = os.path.join(self.output, 'mesh', name)
+        path = (os.path.join(self.output, 'mesh', name) if self.writes
+                else None)
         kfs = KeyframeStore([Keyframe(kf.idx, kf.color, kf.depth,
                                       kf.est_c2w.copy(), kf.gt_c2w)
                              for kf in self.keyframes.frames])
@@ -776,7 +932,7 @@ class SlamSystem:
         t0 = time.perf_counter()
         self.mesher.extract(path, decoders, grids, keyframes, est, idx,
                             **kwargs)
-        self.timers.add_mesh(os.path.basename(path),
+        self.timers.add_mesh(os.path.basename(path or ''),
                              time.perf_counter() - t0,
                              dict(self.mesher.timings))
 
@@ -788,6 +944,8 @@ class SlamSystem:
             future.result()
 
     def _log_metrics(self, idx: int) -> None:
+        if not self.writes:
+            return
         gt_err = float(np.linalg.norm(
             self.estimate_c2w[idx][:3, 3] - self.gt_c2w[idx][:3, 3]))
         rec = {'frame': idx, 'pose_err_vs_gt': round(gt_err, 5),
@@ -850,7 +1008,8 @@ class SlamSystem:
                     self.join_map()
                     self._extract(
                         os.path.join(self.output, 'mesh',
-                                     'final_mesh_eval_rec.ply'),
+                                     'final_mesh_eval_rec.ply')
+                        if self.writes else None,
                         self.decoders, self.grids, self.keyframes,
                         self.estimate_c2w, idx, show_forecast=False,
                         clean_mesh=True, get_mask_use_all_frames=True)
@@ -860,7 +1019,8 @@ class SlamSystem:
         # keep device copies of keyframes only
         if idx not in self.keyframes.indices \
                 and idx not in self.coarse_keyframes.indices:
-            self._frames.pop(idx, None)
+            for key in [k for k in list(self._frames) if k[0] == idx]:
+                del self._frames[key]
 
     def run(self, start: int = 0) -> None:
         """Frames `start` .. the last, read through a Prefetcher

@@ -49,8 +49,19 @@ def tracking_loss(cam7: torch.Tensor, decoders: Mapping[str, nn.Module],
                   grids: Mapping, gt_color: torch.Tensor,
                   gt_depth: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
                   *, model: SceneModel, rcfg: RenderConfig,
-                  tcfg: TrackerConfig, intr: Intrinsics) -> torch.Tensor:
-    """Scalar tracking loss at pose `cam7` over pixels (i=col, j=row)."""
+                  tcfg: TrackerConfig, intr: Intrinsics, group=None,
+                  t_rand: torch.Tensor | None = None,
+                  u_imp: torch.Tensor | None = None) -> torch.Tensor:
+    """Scalar tracking loss at pose `cam7` over pixels (i=col, j=row).
+
+    `t_rand` / `u_imp`: the render's jitter and importance uniforms for
+    every pixel (perturb > 0).  With a `group` (parallel/mesh.RankGroup)
+    of more than one rank, every rank takes the whole pixel batch and
+    renders only its contiguous share of it: the far clamp's maximum comes
+    from the whole batch and the dynamic-pixel median from a gather of the
+    residuals, so the ranks' losses sum to the one-rank loss up to the
+    order of the sums.  Returns this rank's share.
+    """
     c2w = c2w_from_tensor(cam7)
     rays_o, rays_d = rays_from_uv(i, j, c2w, intr)
     d_gt = gather_pixels(gt_depth, i, j)
@@ -65,14 +76,25 @@ def tracking_loss(cam7: torch.Tensor, decoders: Mapping[str, nn.Module],
     # masked rays render with depth 0, so the batch statistics inside the
     # renderer (far clip, zero-depth sweep) see the filtered batch
     d_render = torch.where(inside, d_gt, torch.zeros_like(d_gt))
+    sharded = group is not None and group.size > 1
+    sl, d_max = slice(None), None
+    if sharded:
+        local = d_gt.shape[0] // group.size
+        sl = slice(group.rank * local, (group.rank + 1) * local)
+        d_max = torch.amax(d_render)
     depth, var, color, _ = render_rays(
-        decoders, grids, rays_o, rays_d, stage='color', model=model,
-        rcfg=rcfg, gt_depth=d_render)
+        decoders, grids, rays_o[sl], rays_d[sl], stage='color', model=model,
+        rcfg=rcfg, gt_depth=d_render[sl], d_max=d_max,
+        t_rand=None if t_rand is None else t_rand[sl],
+        u_imp=None if u_imp is None else u_imp[sl])
     var = var.detach()
+    d_gt, inside_all, inside, c_gt = d_gt[sl], inside, inside[sl], c_gt[sl]
 
     tmp = torch.abs(d_gt - depth) / torch.sqrt(var + tcfg.var_floor)
     if tcfg.handle_dynamic:
-        med = masked_median(tmp.detach(), inside)
+        tmp_all = (group.all_gather_tiled(tmp.detach()) if sharded
+                   else tmp.detach())
+        med = masked_median(tmp_all, inside_all)
         mask = (tmp.detach() < 10.0 * med) & (d_gt > 0) & inside
     else:
         mask = (d_gt > 0) & inside
@@ -89,17 +111,26 @@ def track_frame(decoders: Mapping[str, nn.Module], grids: Mapping,
                 gt_color: torch.Tensor, gt_depth: torch.Tensor,
                 cam7_init: torch.Tensor, *, model: SceneModel,
                 rcfg: RenderConfig, tcfg: TrackerConfig, intr: Intrinsics,
-                draws: Sequence[tuple[torch.Tensor, torch.Tensor]]
-                | None = None,
-                generator: torch.Generator | None = None):
+                draws: Sequence[tuple] | None = None,
+                generator: torch.Generator | None = None, group=None):
     """Optimize one frame's pose from `cam7_init` [7].
 
     grids: flat or already corner-expanded volumes (expanded here once when
     flat; the orchestrator passes the expansion it keeps between mapping
     commits); {} for iMAP*.  draws: optional per-iteration (i, j) pixel
-    indices; without them each iteration draws from `generator`.
+    indices, with perturb > 0 followed by the jitter [pixels, n_samples]
+    and the importance uniforms [pixels, n_importance]; without them each
+    iteration draws them from `generator` in that order.  group: the ranks
+    that share the frame's rays (parallel/sharded.py), which keep their
+    generators in step; the loss and the pose gradient are summed over
+    them, so every rank takes the same step.
     Returns (best_cam7 [7], last_cam7 [7], losses [iters]).
     """
+    sharded = group is not None and group.size > 1
+    if sharded and tcfg.pixels % group.size:
+        raise ValueError(
+            f'parallel.track: rays needs tracking.pixels ({tcfg.pixels}) '
+            f'divisible by the number of ranks ({group.size})')
     if model.kind == 'nice':
         with torch.no_grad():
             grids = prepare_grids(grids, model.grid_shapes, stage='color')
@@ -115,17 +146,30 @@ def track_frame(decoders: Mapping[str, nn.Module], grids: Mapping,
     losses = []
     for it in range(tcfg.iters):
         if draws is not None:
-            i, j = draws[it]
+            i, j, *extra = draws[it]
+            t_rand, u_imp = (tuple(extra) + (None, None))[:2]
         else:
             i, j = sample_pixels(
                 tcfg.pixels, tcfg.ignore_edge_h, intr.H - tcfg.ignore_edge_h,
                 tcfg.ignore_edge_w, intr.W - tcfg.ignore_edge_w,
                 generator=generator, device=device)
+            t_rand = u_imp = None
+            if rcfg.perturb > 0:
+                t_rand = torch.rand((tcfg.pixels, rcfg.n_samples),
+                                    generator=generator, device=device)
+                if rcfg.n_importance > 0:
+                    u_imp = torch.rand((tcfg.pixels, rcfg.n_importance),
+                                       generator=generator, device=device)
         loss = tracking_loss(torch.cat([quat, trans]), decoders, grids,
                              gt_color, gt_depth, i, j, model=model,
-                             rcfg=rcfg, tcfg=tcfg, intr=intr)
-        opt.step(torch.autograd.grad(loss, [quat, trans]), lrs)
+                             rcfg=rcfg, tcfg=tcfg, intr=intr, group=group,
+                             t_rand=t_rand, u_imp=u_imp)
+        grads = torch.autograd.grad(loss, [quat, trans])
         loss = loss.detach()
+        if sharded:
+            loss, *grads = group.sum_list([loss, *grads])
+            loss = loss.clone()   # not a view of the summed gradients
+        opt.step(grads, lrs)
         with torch.no_grad():
             # the post-step pose, keyed by the pre-step loss
             better = loss < best_loss

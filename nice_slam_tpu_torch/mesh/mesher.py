@@ -1,5 +1,4 @@
-"""Mesh extraction (L5); port of `nice_slam_tpu/mesh/mesher.py` (one
-device: the sharded lattice query is not ported).
+"""Mesh extraction (L5); port of `nice_slam_tpu/mesh/mesher.py`.
 
   * lattice query: `resolution` points per axis over marching_cubes_bound
     padded by 0.05; field = fine-stage occupancy (iMAP*: the color stage's
@@ -16,11 +15,13 @@ device: the sharded lattice query is not ported).
     forecast region at coarse + 0.2, the rest clamped to -100.
 
 The field and color queries run on the model's device in fixed-size
-chunks under `no_grad`, through the fused decoder-MLP kernel
-(`SceneModel.fused_eval`; ops/fused_mlp.py) for NICE (iMAP*'s decoder has
-no grid features and takes the plain path); hull, marching tetrahedra and
-cleaning run on the host.  `Mesher.timings` holds the wall seconds of each
-piece of the last extraction (every device piece ends with its host copy).
+chunks under `no_grad` (with a `group` of ranks each chunk is split over
+them: parallel/sharded.sharded_eval_points), through the fused
+decoder-MLP kernel (`SceneModel.fused_eval`; ops/fused_mlp.py) for NICE
+(iMAP*'s decoder has no grid features and takes the plain path); hull,
+marching tetrahedra and cleaning run on the host.  `Mesher.timings` holds
+the wall seconds of each piece of the last extraction (every device piece
+ends with its host copy).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from nice_slam_tpu_torch.core.cameras import Intrinsics
 from nice_slam_tpu_torch.engine.frustum import bilinear_sample_zero_border
 from nice_slam_tpu_torch.mesh.native import marching_tetrahedra
 from nice_slam_tpu_torch.models.grids import prepare_grids
+from nice_slam_tpu_torch.parallel.sharded import sharded_eval_points
 from nice_slam_tpu_torch.render.renderer import (
     RenderConfig, SceneModel, eval_raw, render_rays)
 
@@ -60,8 +62,13 @@ class MesherConfig(NamedTuple):
 
 class Mesher:
     def __init__(self, mcfg: MesherConfig, model: SceneModel,
-                 intr: Intrinsics, *, rcfg: RenderConfig | None = None):
+                 intr: Intrinsics, *, rcfg: RenderConfig | None = None,
+                 group=None):
+        """`group`: ranks (parallel/mesh.RankGroup) that split the field
+        queries between them; every rank of it runs the same
+        extraction."""
         self.cfg = mcfg
+        self.group = group if group is not None and group.size > 1 else None
         # every query of the mesher is forward-only: the fused kernel
         self.model = model._replace(fused_eval=True)
         self.intr = intr
@@ -128,8 +135,13 @@ class Mesher:
         out = torch.empty((n,) + width, device=self.device)
         with torch.no_grad():
             for i, j in self._chunks(n):
-                out[i:j] = eval_raw(decoders, grids, pts[i:j], stage,
-                                    self.model)[:, column]
+                if self.group is not None:
+                    raw = sharded_eval_points(decoders, grids, pts[i:j],
+                                              stage, self.model, self.group)
+                else:
+                    raw = eval_raw(decoders, grids, pts[i:j], stage,
+                                   self.model)
+                out[i:j] = raw[:, column]
         return out.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -306,7 +318,8 @@ class Mesher:
                 idx: int, *, show_forecast: bool | None = None,
                 color: bool = True, clean_mesh: bool | None = None,
                 get_mask_use_all_frames: bool = False) -> str | None:
-        """The whole pipeline: field, surface, vertex colors, PLY."""
+        """The whole pipeline: field, surface, vertex colors, PLY (none
+        written when `out_file` is None)."""
         cfg = self.cfg
         show_forecast = (cfg.mesh_coarse_level if show_forecast is None
                          else show_forecast)
@@ -337,6 +350,8 @@ class Mesher:
                     use_depth=cfg.depth_test)
                 colors[v_forecast] = np.array([0, 255, 255], np.uint8)
 
+        if out_file is None:
+            return None
         with self._timed('ply_s'):
             save_ply(out_file, verts / cfg.scale, tris, colors)
         return out_file

@@ -238,15 +238,18 @@ _PACKED_LOCK = threading.Lock()
 def packed_weights(params) -> torch.Tensor:
     """`pack_weights(params)`, built once per parameter set.
 
-    Cached under each parameter's data pointer, shape and version counter
-    (`_version`, which every in-place update bumps: MaskedAdam's step,
-    `load_state_dict` in `SlamSystem.restore`, `param.add_`), so an update
-    rebuilds it; a write through `.data`, which has a counter of its own,
-    would not.  An entry keeps its parameters alive, so no other tensor can
-    take their addresses while it is cached.  On the card the buffer is
-    complete before it is returned (the building stream is synchronized
-    once), and a use from another stream is recorded for the allocator."""
-    key = tuple((w.data_ptr(), w._version, w.shape) for w in params)
+    Cached under each parameter's device, data pointer, shape and version
+    counter (`_version`, which every in-place update bumps: MaskedAdam's
+    step, `load_state_dict` in `SlamSystem.restore`, `param.add_`), so an
+    update rebuilds it; a write through `.data`, which has a counter of its
+    own, would not.  Decoders copied to another card (the two-device
+    pipeline's snapshots) get entries of their own.  An entry keeps its
+    parameters alive, so no other tensor can take their addresses while it
+    is cached.  On the card the buffer is complete before it is returned
+    (the building stream is synchronized once), and a use from another
+    stream is recorded for the allocator."""
+    key = tuple((w.device, w.data_ptr(), w._version, w.shape)
+                for w in params)
     cuda = params[0].is_cuda
     stream = (torch._C._cuda_getCurrentRawStream(params[0].get_device())
               if cuda else None)

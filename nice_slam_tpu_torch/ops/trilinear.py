@@ -112,8 +112,13 @@ def sample_grid_feature(grid: torch.Tensor | ExpandedGrid, p: torch.Tensor,
                         shape: tuple[int, int, int] | None = None
                         ) -> torch.Tensor:
     """World points [N, 3] -> interpolated features [N, C] from a flat grid
-    of `shape` or an `ExpandedGrid`, normalized within `bound`."""
+    of `shape`, an `ExpandedGrid` or a blocked volume
+    (`parallel.blocks.BlockedGrid`), normalized within `bound`."""
     p_nor = normalize_coords(p, bound)
     if isinstance(grid, ExpandedGrid):
         return trilinear_interp_expanded(grid, p_nor)
+    if hasattr(grid, 'slab_h'):   # parallel/blocks.py imports this module
+        from nice_slam_tpu_torch.parallel.blocks import (
+            trilinear_interp_blocked)
+        return trilinear_interp_blocked(grid, p_nor)
     return trilinear_interp(grid, p_nor, shape)

@@ -80,7 +80,7 @@ def eval_raw(decoders: Mapping[str, nn.Module], grids: Mapping,
 
 
 def _z_values(rcfg: RenderConfig, rays_o, rays_d, gt_depth, bound, stage,
-              d_max=None, generator=None) -> torch.Tensor:
+              d_max=None, generator=None, t_rand=None) -> torch.Tensor:
     """Sorted sample depths [N, S]; the coarse stage ignores sensor depth."""
     use_depth = gt_depth is not None and stage != 'coarse'
     near, far = near_far_from_depth(rays_o, rays_d, bound,
@@ -88,7 +88,7 @@ def _z_values(rcfg: RenderConfig, rays_o, rays_d, gt_depth, bound, stage,
                                     grad_z=rcfg.grad_z, d_max=d_max)
     z_vals = stratified_z_vals(rcfg.n_samples, near, far,
                                lindisp=rcfg.lindisp, perturb=rcfg.perturb,
-                               generator=generator)
+                               generator=generator, t_rand=t_rand)
     if use_depth and rcfg.n_surface > 0:
         z_surf = surface_z_vals(rcfg.n_surface, gt_depth, d_max=d_max)
         z_vals = torch.sort(torch.cat([z_vals, z_surf], dim=-1),
@@ -101,18 +101,22 @@ def render_rays(decoders: Mapping[str, nn.Module], grids: Mapping,
                 model: SceneModel, rcfg: RenderConfig,
                 gt_depth: torch.Tensor | None = None,
                 d_max: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                t_rand: torch.Tensor | None = None,
+                u_imp: torch.Tensor | None = None):
     """Render rays [N, 3] -> (depth [N], depth_var [N], color [N, 3],
     weights [N, S]), S = the first samples plus n_importance.
 
     gt_depth: [N] sensor depth, or None (the coarse mapper).  d_max
     overrides the batch depth maximum (the mapper passes the window-global
-    one).  generator: draws the stratified jitter and the importance
-    uniforms when perturb > 0 (with perturb 0 the importance uniforms are
-    the evenly spaced ones).
+    one, the ray-sharded tracker the global batch's).  When perturb > 0 the
+    stratified jitter's uniforms are `t_rand` [N, n_samples] and the
+    importance uniforms `u_imp` [N, n_importance] when given, else drawn
+    from `generator` (with perturb 0 the importance uniforms are the
+    evenly spaced ones).
     """
     z_vals = _z_values(rcfg, rays_o, rays_d, gt_depth, model.bound, stage,
-                       d_max=d_max, generator=generator)
+                       d_max=d_max, generator=generator, t_rand=t_rand)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     n_rays, s = z_vals.shape
     raw = eval_raw(decoders, grids, pts.reshape(-1, 3), stage,
@@ -123,7 +127,8 @@ def render_rays(decoders: Mapping[str, nn.Module], grids: Mapping,
     weights = out[3]
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     z_samples = sample_pdf(z_mid, weights[..., 1:-1], rcfg.n_importance,
-                           det=rcfg.perturb == 0.0, generator=generator)
+                           u=u_imp, det=rcfg.perturb == 0.0,
+                           generator=generator)
     # the first samples' values are those decoded above: decode only the
     # new points, then put both in depth order by one permutation
     pts_new = rays_o[..., None, :] + rays_d[..., None, :] \

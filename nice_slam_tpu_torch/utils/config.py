@@ -46,6 +46,7 @@ HONOURED = frozenset({
     'data.output', 'data.prefetch', 'data.prefetch_workers',
     'pretrained_decoders.middle_fine', 'pretrained_decoders.coarse',
     'sync_method', 'sync_force_free', 'ckpt.compress_images',
+    'parallel.map', 'parallel.track', 'parallel.devices',
     'debug.check_invariants',
     'tracking.pixels', 'tracking.iters', 'tracking.lr',
     'tracking.seperate_LR', 'tracking.w_color_loss',
@@ -92,14 +93,6 @@ _F32 = ('a TPU MXU matmul precision: the port keeps true float32 matmuls '
 # the run is the same) or raises NotImplementedError ('refuse') until the
 # ROADMAP item named lands.
 UNPORTED_OPTIONS = {
-    'parallel.map': ('refuse', 'none', ('none',),
-                     'multi-device mapping (ROADMAP item 15)'),
-    'parallel.track': ('refuse', 'none', ('none',),
-                       'ray-sharded tracking (ROADMAP item 15)'),
-    'parallel.devices': ('warn', _ABSENT, (0,),
-                         'the device count of the parallel backends, which '
-                         'are not ported (ROADMAP item 15); it has no '
-                         'effect here'),
     'visualization.live': ('refuse', _ABSENT, (None, False),
                            'the live dashboard (ROADMAP item 18)'),
     'visualization.live_freq': ('warn', _ABSENT, (),

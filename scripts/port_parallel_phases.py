@@ -1,0 +1,57 @@
+"""The parallel phases of chip_smoke.py alone, on the GPUs this machine
+has: the build, then parallel_parity and parallel_tum (two ranks sharing
+the card on one GPU, one rank a card on more); with two or more cards also
+the strict and loose room0 runs without meshes and the pipeline phase
+(the loose run on the two-device pipeline beside one card).
+
+    python scripts/port_parallel_phases.py
+
+Prints chip_smoke.py's JSON lines of those phases and each phase's
+seconds; exits 1 if a phase fails.  A cheaper call than the whole script
+when only the parallel backends changed.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import tempfile
+import time
+import traceback
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print('port_parallel_phases: no CUDA device', file=sys.stderr)
+        return 2
+    os.chdir(cs.REPO)
+    t0 = time.perf_counter()
+    try:
+        print(cs.phase_card(), flush=True)
+        cs.phase_build()
+        for name, phase in (('parallel_parity', cs.phase_parallel_parity),
+                            ('parallel_tum', cs.phase_parallel_tum)):
+            t = time.perf_counter()
+            phase()
+            print(f'{name} {time.perf_counter() - t:.1f} s', flush=True)
+        if torch.cuda.device_count() >= 2:
+            with tempfile.TemporaryDirectory() as out:
+                strict, _ = cs.run_slam(cs.room0_cfg(), out, mesh=False)
+            cs.phase_pipeline(strict, cs.phase_overlap(strict))
+        else:
+            cs.phase_pipeline({}, {})
+    except Exception:
+        traceback.print_exc()
+        return 1
+    print(f'total {time.perf_counter() - t0:.1f} s')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

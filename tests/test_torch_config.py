@@ -112,9 +112,6 @@ def test_every_key_the_jax_package_reads_is_accounted_for():
 
 
 @pytest.mark.parametrize('section, option', [
-    ('parallel', {'map': 'rays'}),
-    ('parallel', {'map': 'kf', 'devices': 2}),
-    ('parallel', {'track': 'rays'}),
     ('visualization', {'live': True}),
 ])
 def test_refused_options_raise_from_construction(tmp_path, section, option):
@@ -126,6 +123,39 @@ def test_refused_options_raise_from_construction(tmp_path, section, option):
                        match=f'{section}.{key}: {value!r}'):
         SlamSystem(cfg, device='cpu', output=str(tmp_path))
     assert not os.listdir(tmp_path)      # raised before writing anything
+
+
+def _two_frame_run(tmp_path, parallel):
+    from nice_slam_tpu_torch.engine.slam import SlamSystem
+    cfg = make_test_cfg(n_frames=2)
+    if parallel is not None:
+        cfg['parallel'] = parallel
+    slam = SlamSystem(cfg, device='cpu', seed=4, output=str(tmp_path))
+    slam.run()
+    return slam
+
+
+@pytest.fixture(scope='module')
+def parallel_none(tmp_path_factory):
+    return _two_frame_run(tmp_path_factory.mktemp('none'), None)
+
+
+@pytest.mark.parametrize('option', [
+    {'map': 'rays'},
+    {'map': 'kf', 'devices': 1},
+    {'track': 'rays', 'devices': 0},
+])
+def test_parallel_options_are_honoured_in_a_world_of_one(
+        tmp_path, parallel_none, option):
+    """Each parallel backend runs; in a world of one (this process alone)
+    its draws and sums are the single-device program's, so a 2-frame run
+    gives bit-identical poses and map to `parallel: none`."""
+    slam = _two_frame_run(tmp_path, option)
+    assert slam.world.size == 1
+    np.testing.assert_array_equal(slam.estimate_c2w,
+                                  parallel_none.estimate_c2w)
+    for name, g in slam.grids.items():
+        assert torch.equal(g, parallel_none.grids[name]), name
 
 
 def test_inert_values_pass_and_warned_keys_warn_once(tmp_path):
@@ -163,18 +193,17 @@ def _base_of(path: str) -> str:
         os.path.join(REPO, 'configs', '*', '*.yaml'))))
 def test_shipped_configs_pass_but_the_multichip_ones(path):
     """Every scene config, over its base, passes the check (with
-    warnings only); the multi-device ones are refused for their parallel
-    backend."""
+    warnings only), the multi-device ones too since their parallel
+    backends are ported: none of their `parallel` keys warns."""
     from nice_slam_tpu_torch.utils.config import check_options, load_config
     cfg = load_config(os.path.join(REPO, path),
                       os.path.join(REPO, _base_of(path)))
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
-        if path.endswith('_multichip.yaml'):
-            with pytest.raises(NotImplementedError, match='parallel'):
-                check_options(cfg)
-        else:
-            check_options(cfg)
+        messages = check_options(cfg)
+    if path.endswith('_multichip.yaml'):
+        assert cfg['parallel'] and not any(
+            m.startswith('parallel') for m in messages), messages
 
 
 @pytest.mark.parametrize('method', ['global', 'overlap'])
