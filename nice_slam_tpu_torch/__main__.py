@@ -2,7 +2,7 @@
 
     python -m nice_slam_tpu_torch configs/Replica/room0.yaml \
         [--nice | --imap] [--input_folder DIR] [--output DIR] [--resume] \
-        [--device cpu] [--seed N]
+        [--device cpu] [--seed N] [--live [--live_port P]]
 
 `--nice` (the default) and `--imap` pick the method, NICE-SLAM or iMAP*,
 and the base config the scene config layers over: configs/nice_slam.yaml
@@ -15,6 +15,9 @@ CUDA unless `--device cpu` is given.  The run's output directory is
 frame to `metrics.jsonl`, and at the end trajectory.npz (estimated and
 ground-truth c2w) and ate.json.  --resume restarts from the newest
 checkpoint in `ckpts/` (from the first frame when there is none).
+--live writes the live dashboard under `live/` as the run goes
+(`visualization.live: true`); --live_port P also serves it over HTTP on
+port P (0: a free one) and implies --live.
 
 Ranks (one process per device, for the `parallel.*` backends) are brought
 up from the JAX package's variables, as run.py does: NSTPU_COORDINATOR
@@ -51,6 +54,11 @@ def main() -> None:
     parser.add_argument('--device', type=str, default=None,
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--live', action='store_true',
+                        help='write a self-refreshing live dashboard '
+                             'under <output>/live while the run executes')
+    parser.add_argument('--live_port', type=int, default=None,
+                        help='also serve the live dashboard over HTTP')
     args = parser.parse_args()
 
     import numpy as np
@@ -65,6 +73,11 @@ def main() -> None:
 
     default = 'configs/nice_slam.yaml' if args.nice else 'configs/imap.yaml'
     cfg = load_config(args.config, default)
+    if args.live or args.live_port is not None:
+        vcfg = cfg['visualization'] = dict(cfg.get('visualization') or {},
+                                           live=True)
+        if args.live_port is not None:
+            vcfg['live_port'] = args.live_port
     initialize_from_env()
     try:
         slam = SlamSystem(cfg, nice=args.nice, device=args.device,

@@ -223,7 +223,8 @@ def map_iterations(decoders: Mapping[str, nn.Module], grids: dict,
                    frames: slice | None = None,
                    reduce: Callable | None = None,
                    reduce_max: Callable | None = None,
-                   prepare: Callable | None = None):
+                   prepare: Callable | None = None,
+                   on_iteration: Callable[[int], None] | None = None):
     """The iterations of one mapping call, shared by the single-rank step
     (`map_step`) and the parallel ones (`parallel/`): per iteration the
     window loss of the rays this rank renders, its gradient over the
@@ -236,7 +237,9 @@ def map_iterations(decoders: Mapping[str, nn.Module], grids: dict,
     that share the step (None entries stay None); reduce_max(d_max): the
     far clamp's maximum over the ranks that split the window; prepare(grids,
     stage): what the renderer samples (default: the corner expansion of the
-    volumes the stage reads, rebuilt every iteration; backward = the fold).
+    volumes the stage reads, rebuilt every iteration; backward = the fold);
+    on_iteration(it): called before iteration `it` (the render panels; it
+    must draw from no generator and leave the leaves as they are).
     The other arguments are `map_step`'s.
     """
     nice = model.kind == 'nice'
@@ -259,6 +262,8 @@ def map_iterations(decoders: Mapping[str, nn.Module], grids: dict,
 
     losses = []
     for it in range(len(lr_tab)):
+        if on_iteration is not None:
+            on_iteration(it)
         stage = STAGE_ORDER[int(stage_idx[it])]
         dr = draw(it)
         o, d, dgt, cgt = window_rays(cams if frames is None else cams[frames],
@@ -343,7 +348,8 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
              mcfg: MapperConfig, intr: Intrinsics, pix_per_frame: int,
              draws: Sequence | None = None,
              reg_jitter: Sequence[torch.Tensor] | None = None,
-             generator: torch.Generator | None = None):
+             generator: torch.Generator | None = None,
+             on_iteration: Callable[[int], None] | None = None):
     """One mapping call: len(lr_tab) iterations with one Adam state.
 
     grids: {name: flat [M, C] leaf tensor} ({} for iMAP*), updated in
@@ -354,7 +360,7 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
     (i, j) [F, P] pixel indices with the regulation's jitter in
     `reg_jitter` (per-iteration [F, P, n_samples] uniforms, density
     compositing only); without them each iteration draws from `generator`
-    (`draw_map_iteration`).
+    (`draw_map_iteration`).  on_iteration: `map_iterations`'.
     Returns (cams [F, 7] after the call, losses [n_iters]).
     """
     n_frames = cams.shape[0]
@@ -376,4 +382,5 @@ def map_step(decoders: Mapping[str, nn.Module], grids: dict,
         decoders, grids, cams, trainable=trainable, masks=masks,
         cam_mask=cam_mask, lr_tab=lr_tab, stage_idx=stage_idx,
         colors=colors, depths=depths, model=model, rcfg=rcfg, mcfg=mcfg,
-        intr=intr, pix_per_frame=pix_per_frame, draw=draw)
+        intr=intr, pix_per_frame=pix_per_frame, draw=draw,
+        on_iteration=on_iteration)

@@ -58,9 +58,19 @@ final mesh and, with `meshing.eval_rec`, the evaluation mesh
 (`<output>/mesh/`); one line per frame in `<output>/metrics.jsonl`; with
 `mapping.save_selected_keyframes_info`, the window of every mapping call
 (`selected_keyframes`, checkpointed).  Rank 0 alone writes them.
-Visualization is not ported yet:
-`utils/config.check_options` warns about its keys, and refuses the
-options of modules that are not ported.
+
+Render panels and the live dashboard, as in the JAX package (rank 0
+alone): with `enable_vis` (on by default) a tracking panel every
+`tracking.vis_freq` frames (`tracking_vis/`), and on mapped frames every
+`mapping.vis_freq` frames panels every `mapping.vis_inside_freq`
+iterations of the mapping call and one after it (`mapping_vis/`);
+an output path containing 'Demo' gets the tracking panels in `vis/` and
+no mapping panels (utils/visualizer.py).  A panel draws nothing from the
+run's generators and changes no state: the tracking panel renders the map
+the tracker rendered against (its snapshot), the mapping panels render on
+the mapping thread, its device and stream.  `visualization.live` keeps
+`<output>/live/` up to date (utils/live.py), and `debug.profile_dir`
+traces `run()` with torch.profiler into that directory.
 """
 
 from __future__ import annotations
@@ -99,6 +109,8 @@ from nice_slam_tpu_torch.parallel.sharded import ray_sharded_map_step
 from nice_slam_tpu_torch.render.renderer import SceneModel
 from nice_slam_tpu_torch.utils import config as cfgutil
 from nice_slam_tpu_torch.utils.ckpt import save_checkpoint
+from nice_slam_tpu_torch.utils.live import LiveViewer
+from nice_slam_tpu_torch.utils.visualizer import Visualizer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -392,6 +404,33 @@ class SlamSystem:
                              group=self._mesh_group)
         if not one:
             self.mesh_async = False
+        self.profile_dir = (cfg.get('debug') or {}).get('profile_dir')
+        self._init_services(cfg)
+
+    def _init_services(self, cfg: dict) -> None:
+        """The render panels and the live dashboard (the writing rank's
+        alone), with the JAX package's directories and defaults."""
+        self.vis_enabled = bool(cfg.get('enable_vis', True))
+        self.track_vis = self.map_vis = self.live = None
+        self._last_panel: str | None = None
+        if not self.writes:
+            return
+        demo = 'Demo' in self.output
+        self.track_vis = Visualizer(
+            os.path.join(self.output, 'vis' if demo else 'tracking_vis'),
+            cfg['tracking'].get('vis_freq', 50), model=self.model,
+            rcfg=self.rcfg, intr=self.intr, verbose=self.verbose)
+        if not demo:
+            self.map_vis = Visualizer(
+                os.path.join(self.output, 'mapping_vis'),
+                cfg['mapping'].get('vis_freq', 50), model=self.map_model,
+                rcfg=self.rcfg, intr=self.intr, verbose=self.verbose)
+        vcfg = cfg.get('visualization') or {}
+        if vcfg.get('live'):
+            self.live = LiveViewer(
+                os.path.join(self.output, 'live'), self.intr,
+                freq=int(vcfg.get('live_freq', 5)),
+                port=vcfg.get('live_port'))
 
     @property
     def nice(self) -> bool:
@@ -562,7 +601,23 @@ class SlamSystem:
         self.gt_c2w[idx] = gt_c2w_np
         self._sync()
         self.timers.add_track(idx, time.perf_counter() - t0)
+        if (self.vis_enabled and self.track_vis is not None and idx > 0
+                and idx % self.track_vis.freq == 0):
+            decoders, grids = self._tracked_map()
+            self._last_panel = self.track_vis.vis(
+                idx, 0, depth_np, color_np, c2w, decoders, grids)
         return c2w
+
+    def _tracked_map(self):
+        """The map a tracking panel renders: the tracker's snapshot; with
+        none (ground-truth poses), the snapshot of the oldest queued
+        round, which the tracker would adopt next, else the map itself,
+        which no round is writing then."""
+        if self._tracking_grids is not None:
+            return self._tracking_grids
+        if self._rounds:
+            return self._rounds[0][1].result()
+        return self.decoders, self.grids
 
     # ------------------------------------------------------------------
     # mapping
@@ -637,6 +692,14 @@ class SlamSystem:
                                  fix_color=fix_color)
         trainable = sorted(self.trainable - ({'color'} if fix_color
                                              else set()))
+        panel_iters = self._inside_panel_iters(idx, mcfg, n_iters, coarse)
+
+        def panel(it):
+            # a panel between two iterations, from the map as it stands
+            if it in panel_iters:
+                self._last_panel = self.map_vis.vis(
+                    idx, it, depth_np, color_np, cur_c2w, self.decoders,
+                    self.grids)
 
         for outer in range(outer_iters):
             ba = len(store) > 4 and mcfg.ba and not coarse
@@ -694,7 +757,8 @@ class SlamSystem:
                 model=self.map_model, rcfg=self.rcfg, mcfg=mcfg_eff,
                 intr=self.intr,
                 pix_per_frame=max(mcfg.pixels // n_frames, 1),
-                generator=self.map_generator)
+                generator=self.map_generator,
+                on_iteration=panel if panel_iters else None)
             if kf_par:
                 mine = pdist.window_slice(n_frames, self._map_group)
 
@@ -742,6 +806,33 @@ class SlamSystem:
                 else 'refine' if refine else 'normal')
         self.timers.add_map(idx, kind, n_iters * outer_iters,
                             time.perf_counter() - t0)
+        if (not coarse and self.vis_enabled and self.map_vis is not None
+                and idx > 0):
+            self._last_panel = self.map_vis.vis(
+                idx, 0, depth_np, color_np, cur_c2w, self.decoders,
+                self.grids) or self._last_panel
+
+    def _inside_panel_iters(self, idx: int, mcfg: MapperConfig,
+                            n_iters: int, coarse: bool) -> frozenset:
+        """The iterations of a mapping call (each outer iteration's) before
+        which a panel renders: the JAX package renders one before each of
+        its compiled chunks whose start is a multiple of
+        `mapping.vis_inside_freq`, its chunks `iters` iterations long (a
+        third for iMAP*), at most `vis_inside_freq`, on frames that are
+        multiples of `mapping.vis_freq`, never in the coarse call, and not
+        on frame 0 while `no_vis_on_first_frame` holds."""
+        m = self.cfg['mapping']
+        inside = int(m.get('vis_inside_freq', 0))
+        freq = int(m.get('vis_freq', 0))
+        if not (self.vis_enabled and self.map_vis is not None and not coarse
+                and freq > 0 and inside > 0 and idx % freq == 0
+                and idx % self.map_vis.freq == 0
+                and (idx > 0 or not m.get('no_vis_on_first_frame', True))):
+            return frozenset()
+        chunk = max(min(mcfg.iters // (1 if self.nice else 3), n_iters,
+                         inside), 1)
+        return frozenset(c for c in range(0, n_iters, chunk)
+                         if c % inside == 0)
 
     def _map_round(self, idx: int, color_np, depth_np, gt_c2w_np) -> None:
         """The mapping of frame idx: [coarse call] + the call (at frame 0
@@ -1016,6 +1107,12 @@ class SlamSystem:
         if self.check_invariants:
             self._assert_invariants(idx)
         self._log_metrics(idx)
+        if self.live is not None:
+            self.live.update(idx, self.n_img, self.estimate_c2w,
+                             self.gt_c2w,
+                             mesh_dir=os.path.join(self.output, 'mesh'),
+                             panel_path=self._last_panel,
+                             timers=self.timers.summary())
         # keep device copies of keyframes only
         if idx not in self.keyframes.indices \
                 and idx not in self.coarse_keyframes.indices:
@@ -1029,6 +1126,16 @@ class SlamSystem:
         and the background mesh are joined (their errors raised here), and
         every thread stopped, however the loop ends."""
         data = self.cfg.get('data', {})
+        profiler = None
+        if self.profile_dir:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    self.profile_dir))
+            profiler.start()
         reader, self.frame_reader = self.frame_reader, Prefetcher(
             self.frame_reader, start=start,
             ahead=int(data.get('prefetch', 2)),
@@ -1050,5 +1157,9 @@ class SlamSystem:
                 self.timers.read_s = self.frame_reader.read_s
                 self.timers.prefetch_wait_s = self.frame_reader.wait_s
             self.frame_reader = reader
+            if self.live is not None:
+                self.live.close()
+            if profiler is not None:
+                profiler.stop()
         if self.verbose:
             print('INFO: run complete:', self.timers.summary())

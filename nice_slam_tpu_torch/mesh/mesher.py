@@ -27,6 +27,7 @@ ends with its host copy).
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Mapping, NamedTuple
 
@@ -445,9 +446,11 @@ def _filter_components(verts: np.ndarray, tris: np.ndarray, *,
 
 def save_ply(path: str, verts: np.ndarray, tris: np.ndarray,
              colors: np.ndarray | None = None) -> None:
-    """Binary little-endian PLY writer."""
+    """Binary little-endian PLY writer; the file appears whole (written
+    beside it, then moved into place), for the live dashboard's reader."""
     n_v, n_f = len(verts), len(tris)
-    with open(path, 'wb') as f:
+    tmp = path + '.tmp'
+    with open(tmp, 'wb') as f:
         hdr = ['ply', 'format binary_little_endian 1.0',
                f'element vertex {n_v}',
                'property float x', 'property float y', 'property float z']
@@ -470,6 +473,7 @@ def save_ply(path: str, verts: np.ndarray, tris: np.ndarray,
         body['n'] = counts[:, 0]
         body['idx'] = tris.astype('<i4')
         f.write(body.tobytes())
+    os.replace(tmp, path)
 
 
 def load_ply(path: str):

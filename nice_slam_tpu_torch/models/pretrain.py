@@ -1,5 +1,6 @@
 """Load the ConvONet-pretrained decoder checkpoints into the decoder
-modules; port of `nice_slam_tpu/models/pretrain.py`.
+modules, and write decoders in the same layout; port of
+`nice_slam_tpu/models/pretrain.py`.
 
   * `pretrained_decoders.coarse` holds the coarse `MLP_no_xyz` under
     'decoder.*' keys;
@@ -8,7 +9,8 @@ modules; port of `nice_slam_tpu/models/pretrain.py`.
     reference's quirk) and fine's under 'decoder.fine.*'.
 
 The modules use the reference's parameter names, so loading is a prefix
-strip; torch Linear weights are [out, in] on both sides.
+strip and saving a prefix add; torch Linear weights are [out, in] on both
+sides.
 """
 
 from __future__ import annotations
@@ -52,3 +54,24 @@ def load_torch_pretrain(decoders: nn.ModuleDict, pre_cfg: dict, *,
     if coarse and path and os.path.exists(path):
         ckpt_c = torch.load(path, map_location='cpu', weights_only=True)
         _load_into(decoders['coarse'], _strip(ckpt_c['model'], 'decoder.'))
+
+
+def _prefixed(module: nn.Module, prefix: str) -> dict:
+    return {prefix + key: val.detach().cpu().clone()
+            for key, val in module.state_dict().items()}
+
+
+def save_torch_pretrain(decoders: nn.ModuleDict, coarse_path: str | None,
+                        middle_fine_path: str) -> None:
+    """Write `decoders` as reference-layout blobs, the inverse of
+    `load_torch_pretrain`: `middle_fine_path` holds middle under
+    'decoder.coarse.*' (the reference's quirk) and fine under
+    'decoder.fine.*'; `coarse_path`, when given and the decoders have a
+    coarse MLP, holds it under 'decoder.*'.  Each file is
+    `torch.save({'model': state_dict})`."""
+    torch.save({'model': {**_prefixed(decoders['middle'], 'decoder.coarse.'),
+                          **_prefixed(decoders['fine'], 'decoder.fine.')}},
+               middle_fine_path)
+    if coarse_path is not None and 'coarse' in decoders:
+        torch.save({'model': _prefixed(decoders['coarse'], 'decoder.')},
+                   coarse_path)

@@ -7,8 +7,8 @@ statistics printed one per line; the port's counterpart of
         [--output DIR] [--plot]
 
 --output is the run's directory (default: the config's `data.output`);
---plot also writes `eval_ate_plot.png` there (matplotlib, imported only
-then).  Runs on the CPU.
+--plot also writes `eval_ate_plot.png` there, the trajectories in x-z
+(utils/draw.py).  Runs on the CPU.
 """
 
 from __future__ import annotations
@@ -43,20 +43,17 @@ def main(argv=None) -> None:
         print(f'{k}: {v:.6f}' if isinstance(v, float) else f'{k}: {v}')
 
     if args.plot:
-        import matplotlib
-        matplotlib.use('Agg')
-        import matplotlib.pyplot as plt
+        from nice_slam_tpu_torch.utils import draw
         est = state['estimate_c2w'][:n, :3, 3]
         gt = state['gt_c2w'][:n, :3, 3]
-        fig, ax = plt.subplots(figsize=(6, 6))
-        ax.plot(gt[:, 0], gt[:, 2], 'k-', label='ground truth')
-        ax.plot(est[:, 0], est[:, 2], 'b-', label='estimated')
-        ax.legend()
-        ax.set_title(
-            f"ATE RMSE: "
-            f"{stats['absolute_translational_error.rmse'] * 100:.2f} cm")
-        out_png = os.path.join(output, 'eval_ate_plot.png')
-        fig.savefig(out_png, dpi=120)
+        image = draw.plot([
+            {'xy': gt[:, [0, 2]], 'color': 'k', 'label': 'ground truth'},
+            {'xy': est[:, [0, 2]], 'color': 'b', 'label': 'estimated'}],
+            600, 600)
+        title = (f"ATE RMSE: "
+                 f"{stats['absolute_translational_error.rmse'] * 100:.2f} cm")
+        out_png = draw.save(os.path.join(output, 'eval_ate_plot.png'),
+                            draw.compose([image], [title], ncols=1))
         print(f'plot saved to {out_png}')
 
 

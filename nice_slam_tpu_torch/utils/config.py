@@ -8,8 +8,8 @@ package's config tree loads unchanged.
 
 `HONOURED` and `UNPORTED_OPTIONS` account for every key the JAX package's
 SlamSystem and config readers read; `check_options` (called first by
-SlamSystem) warns about or refuses the unported ones, so no option of a
-config is ignored without a word.
+SlamSystem) warns about the unported ones, which are TPU settings only, so
+no option of a config is ignored without a word.
 """
 
 from __future__ import annotations
@@ -47,7 +47,11 @@ HONOURED = frozenset({
     'pretrained_decoders.middle_fine', 'pretrained_decoders.coarse',
     'sync_method', 'sync_force_free', 'ckpt.compress_images',
     'parallel.map', 'parallel.track', 'parallel.devices',
-    'debug.check_invariants',
+    'debug.check_invariants', 'debug.profile_dir',
+    'enable_vis', 'tracking.vis_freq', 'mapping.vis_freq',
+    'mapping.vis_inside_freq', 'mapping.no_vis_on_first_frame',
+    'visualization.live', 'visualization.live_freq',
+    'visualization.live_port',
     'tracking.pixels', 'tracking.iters', 'tracking.lr',
     'tracking.seperate_LR', 'tracking.w_color_loss',
     'tracking.use_color_in_tracking', 'tracking.ignore_edge_W',
@@ -78,44 +82,24 @@ HONOURED = frozenset({
 })
 
 _ABSENT = object()   # the key is not in the config
-_VIS = ('the visualizer panels are not ported (ROADMAP item 18): no '
-        'panels are written')
 _AUTOTUNE = ("the JAX package's TPU compile re-roll is not ported (the "
              "port's 'Semantics, not TPU workarounds' rule); it has no "
              'effect here')
 _F32 = ('a TPU MXU matmul precision: the port keeps true float32 matmuls '
         '(TF32 off, its "Precision" rule)')
 
-# The keys the port does not act on: key -> (action, the JAX package's
-# value when the key is absent, the values that change nothing there, what
-# the key drives).  When a config gives a key (or its absence gives it) any
-# other value, SlamSystem warns once ('warn': an output or a TPU setting;
-# the run is the same) or raises NotImplementedError ('refuse') until the
-# ROADMAP item named lands.
+# The TPU settings, which the port does not act on: key -> (the JAX
+# package's value when the key is absent, the values that change nothing
+# there, what the key drives).  When a config gives a key (or its absence
+# gives it) any other value, SlamSystem warns once; the run is the same.
 UNPORTED_OPTIONS = {
-    'visualization.live': ('refuse', _ABSENT, (None, False),
-                           'the live dashboard (ROADMAP item 18)'),
-    'visualization.live_freq': ('warn', _ABSENT, (),
-                                'the live dashboard is not ported (ROADMAP '
-                                'item 18)'),
-    'visualization.live_port': ('warn', _ABSENT, (None,),
-                                'the live dashboard is not ported (ROADMAP '
-                                'item 18)'),
-    'enable_vis': ('warn', True, (False,), _VIS),
-    'tracking.vis_freq': ('warn', _ABSENT, (), _VIS),
-    'mapping.vis_freq': ('warn', _ABSENT, (), _VIS),
-    'mapping.vis_inside_freq': ('warn', _ABSENT, (), _VIS),
-    'mapping.no_vis_on_first_frame': ('warn', _ABSENT, (), _VIS),
-    'debug.profile_dir': ('warn', _ABSENT, (None,),
-                          "the JAX profiler trace is not ported (the port's "
-                          'profile is scripts/port_profile_room0.py)'),
-    'matmul_precision': ('warn', 'float32', ('float32', 'highest'), _F32),
-    'model.decoder_matmul_precision': ('warn', _ABSENT,
-                                       (None, 'float32', 'highest'), _F32),
-    'tracking.autotune_ms': ('warn', _ABSENT, (), _AUTOTUNE),
-    'tracking.autotune_candidates': ('warn', _ABSENT, (), _AUTOTUNE),
-    'mapping.autotune_ms_per_iter': ('warn', _ABSENT, (), _AUTOTUNE),
-    'mapping.autotune_candidates': ('warn', _ABSENT, (), _AUTOTUNE),
+    'matmul_precision': ('float32', ('float32', 'highest'), _F32),
+    'model.decoder_matmul_precision': (_ABSENT, (None, 'float32', 'highest'),
+                                       _F32),
+    'tracking.autotune_ms': (_ABSENT, (), _AUTOTUNE),
+    'tracking.autotune_candidates': (_ABSENT, (), _AUTOTUNE),
+    'mapping.autotune_ms_per_iter': (_ABSENT, (), _AUTOTUNE),
+    'mapping.autotune_candidates': (_ABSENT, (), _AUTOTUNE),
 }
 
 
@@ -129,19 +113,16 @@ def _lookup(cfg: dict, key: str):
 
 
 def check_options(cfg: dict) -> list[str]:
-    """Raise NotImplementedError for the first refused option the config
-    sets, naming the key and its value; warn once for every warned one.
-    Returns the warnings' messages."""
+    """Warn once for every unported option the config sets to a value
+    that would change the JAX package's run.  Returns the warnings'
+    messages."""
     messages = []
-    for key, (action, default, inert, what) in UNPORTED_OPTIONS.items():
+    for key, (default, inert, what) in UNPORTED_OPTIONS.items():
         value = _lookup(cfg, key)
         if value is _ABSENT:
             value = default
         if value is _ABSENT or value in inert:
             continue
-        if action == 'refuse':
-            raise NotImplementedError(
-                f'{key}: {value!r} is not ported yet: {what}')
         msg = f'{key}: {value!r} is ignored: {what}'
         warnings.warn(msg, UserWarning, stacklevel=3)
         messages.append(msg)

@@ -1,9 +1,9 @@
 """The port's account of the JAX package's config keys
 (nice_slam_tpu_torch/utils/config.py HONOURED and UNPORTED_OPTIONS): every
-key the JAX package's SlamSystem and config readers read is honoured,
-warned about or refused; the refused options raise NotImplementedError
-from SlamSystem's construction; the warned ones warn once and change
-nothing; every shipped config but the multi-device ones passes.  And
+key the JAX package's SlamSystem and config readers read is honoured or,
+for the TPU settings only, warned about; the warned ones warn once and
+change nothing; `visualization.live`, the last option the port refused,
+is honoured; every shipped config passes.  And
 `mapping.save_selected_keyframes_info`: the port's window log against the
 JAX package's window selection on the same draws, kept across a
 checkpoint."""
@@ -107,22 +107,30 @@ def test_every_key_the_jax_package_reads_is_accounted_for():
     assert not HONOURED & set(UNPORTED_OPTIONS)
     missing = keys - HONOURED - set(UNPORTED_OPTIONS)
     assert not missing, sorted(missing)
-    for key, (action, _, inert, what) in UNPORTED_OPTIONS.items():
-        assert action in ('warn', 'refuse') and what, key
+    for key, (_, inert, what) in UNPORTED_OPTIONS.items():
+        assert what, key
+    # only the TPU settings stay unported
+    assert set(UNPORTED_OPTIONS) == {
+        'matmul_precision', 'model.decoder_matmul_precision',
+        'tracking.autotune_ms', 'tracking.autotune_candidates',
+        'mapping.autotune_ms_per_iter', 'mapping.autotune_candidates'}
 
 
 @pytest.mark.parametrize('section, option', [
     ('visualization', {'live': True}),
 ])
-def test_refused_options_raise_from_construction(tmp_path, section, option):
+def test_live_option_is_honoured_from_construction(tmp_path, section,
+                                                   option):
+    """The option the port refused until the dashboard was ported
+    constructs with no warning and writes `<output>/live/`."""
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     cfg = make_test_cfg(n_frames=2)
     cfg[section] = option
-    key, value = next((k, v) for k, v in option.items() if k != 'devices')
-    with pytest.raises(NotImplementedError,
-                       match=f'{section}.{key}: {value!r}'):
-        SlamSystem(cfg, device='cpu', output=str(tmp_path))
-    assert not os.listdir(tmp_path)      # raised before writing anything
+    with warnings.catch_warnings():
+        warnings.simplefilter('error')
+        slam = SlamSystem(cfg, device='cpu', output=str(tmp_path))
+    assert slam.live is not None and slam.live.port is None
+    assert os.listdir(tmp_path / 'live') == ['index.html']
 
 
 def _two_frame_run(tmp_path, parallel):

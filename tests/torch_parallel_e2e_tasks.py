@@ -6,6 +6,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from tests.util import make_test_cfg
 
@@ -19,6 +20,9 @@ def slam_run(world, parallel: dict, output: str, seed: int = 4):
     cfg['parallel'] = parallel
     slam = SlamSystem(cfg, device='cpu', seed=seed, output=output)
     slam.run()
+    # every rank past run(), so rank 0's files are complete (each is
+    # written beside its name and renamed) when the directory is listed
+    world.sum_list([torch.zeros(1)])
     written = sorted(os.path.relpath(os.path.join(d, f), output)
                      for d, _, files in os.walk(output) for f in files
                      ) if os.path.isdir(output) else []
