@@ -174,11 +174,23 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                of one's, the five kernels of rows 1-8 launched on every
                rank, the final mesh written by rank 0 through the sharded
                lattice query
- 12. pipeline  with two or more cards: the overlap phase's loose room0 (the
+ 12. parallel_loose  the overlapped schedules on the ranks, in one rank
+               process each: synthetic.yaml under sync_method: loose with
+               parallel: {track: rays, map: rays}, its ATE and largest
+               error within 1.5x the worst of the JAX seeds in the same
+               setting, the ranks' poses and adoption records identical;
+               the TUM config of parallel_tum under loose beside its strict
+               ranks (poses identical, ATE within 5x the world of one's,
+               the five kernels on every rank; per rank ms per tracked
+               frame and mapping call, refreshes, the control group's
+               all-reduces, collectives by group, peak memory); free, kept
+               on distinct cards (a 10-frame run, poses identical) and
+               falling back to loose with its warning on a shared card
+ 13. pipeline  with two or more cards: the overlap phase's loose room0 (the
                mapper on the second card) beside the same run in a process
                that sees one card; ATE within 5x of strict room0.  On one
                card it prints {"phase": "pipeline", "ran": false}
- 13. services  synthetic.yaml again under strict with render panels
+ 14. services  synthetic.yaml again under strict with render panels
                (tracking.vis_freq 10, mapping.vis_freq 10, vis_inside_freq
                30) and the live dashboard (live_freq 5, a free HTTP port):
                its poses bit-identical to the accuracy phase's (panels and
@@ -190,7 +202,7 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                (tools/visualizer.py, --stride 10) on the run's output: 4
                frames.  The seconds of one panel (render, drawing, encode)
                at 120x160 here and at 680x1200 in the render phase
- 14. pretrain  tools/pretrain_decoders.py at its defaults (12 frames,
+ 15. pretrain  tools/pretrain_decoders.py at its defaults (12 frames,
                120x160, iters_first 800, iters 60, seed 4) on the card, the
                blobs exported and reloaded bit-equal; then pretrained mode
                on the unseen box of tests/test_pretrained_mode.py (9
@@ -200,7 +212,7 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                in the same setting (scripts/
                port_pretrained_transfer_seeds.py --train jax-defaults),
                that test's bars (0.06 / 0.03 / 0.055 m) printed beside
- 15. entry     graft_entry.entry()'s forward step on the card against the
+ 16. entry     graft_entry.entry()'s forward step on the card against the
                same step on the CPU (the plain kernels) within 1e-5 x
                max(1, max|CPU|); then dryrun_multichip: one rank a card on
                NCCL with two or more cards, else two gloo ranks sharing the
@@ -220,6 +232,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -248,6 +261,14 @@ REC_BOUND_COMPLETION_RATIO_PCT = 0.67 * 18.523999999999997
 # 0.019387 m, worst per-frame error 0.126280 m (both seed 2)
 LOOSE_BOUND_ATE_RMSE_M = 1.5 * 0.019387026506052316
 LOOSE_BOUND_MAX_ERR_M = 1.5 * 0.12628036737442017
+
+# 1.5x the worst of seeds 0-2 of the JAX package on synthetic.yaml under
+# sync_method: loose with parallel: {track: rays, map: rays} on two forced
+# host devices (JAX_PLATFORMS=cpu python scripts/port_jax_accuracy_bound.py
+# --sync loose --parallel 2 --seeds S): worst ATE RMSE 0.019603 m and
+# per-frame error 0.074079 m (both seed 1)
+PAR_LOOSE_BOUND_ATE_RMSE_M = 1.5 * 0.019603011804768266
+PAR_LOOSE_BOUND_MAX_ERR_M = 1.5 * 0.07407891005277634
 
 # 1.5x (ATE RMSE, largest per-frame error, mesh accuracy and completion)
 # and 0.67x (completion ratio) the worst of seeds 0-2 of the JAX package's
@@ -1899,6 +1920,14 @@ PAR_BLOCK_RTOL, PAR_BLOCK_ATOL = 1e-4, 5e-6
 # the TUM run's ATE on the ranks: at most 5x the world of one's (the rule
 # the loose and disk room0 runs use, PERF.md section 2)
 TUM_ATE_FACTOR = 5.0
+# the kernels every rank of the parallel phases must launch
+PAR_KERNELS = ('expand_corners', 'fold_corners', 'gather_rows',
+               'scatter_add_rows', 'fused_mlp')
+# parallel_loose: the frames of its free run (ranks on distinct cards),
+# and the seconds its ranks may take (a rank that hangs in a collective
+# fails the phase)
+LOOSE_FREE_FRAMES = 10
+LOOSE_TIMEOUT_S = 420
 # the TUM run's cuts of depth (the widths and budgets stay the config's)
 TUM_FRAMES = 5
 TUM_ITERS_FIRST = 100
@@ -1946,7 +1975,11 @@ def spawn_ranks(task: str, n: int, args=(), timeout: float = 600.0,
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.perf_counter()))
     except subprocess.TimeoutExpired:
-        pass
+        # a rank that hangs: every thread's stack into its log first
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGUSR1)
+        time.sleep(3.0)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1960,7 +1993,7 @@ def spawn_ranks(task: str, n: int, args=(), timeout: float = 600.0,
         if p.returncode != 0 or not os.path.exists(path):
             with open(os.path.join(tmp, f'rank{rank}.log')) as f:
                 failed.append(f'rank {rank} exited {p.returncode}:\n'
-                              f'{f.read()[-3000:]}')
+                              f'{f.read()[-8000:]}')
             continue
         with open(path) as f:
             results.append(json.load(f))
@@ -1972,15 +2005,20 @@ def spawn_ranks(task: str, n: int, args=(), timeout: float = 600.0,
 def run_rank_task(task: str, out: str, args) -> int:
     """A rank's body: join the world from NSTPU_*, run the task, write its
     JSON result.  Imports nothing of JAX."""
+    import faulthandler
+
     import torch
     from nice_slam_tpu_torch.parallel.distributed import (
         initialize_from_env, shutdown)
     os.chdir(REPO)
     sys.path.insert(0, REPO)
+    # spawn_ranks asks a rank that outlives its timeout for its stacks
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     world = initialize_from_env()
     try:
         res = {'parity': rank_parity, 'tum': rank_tum,
-               'loose_room0': rank_loose_room0}[task](world, args)
+               'loose_room0': rank_loose_room0,
+               'loose': rank_loose}[task](world, args)
         torch.cuda.synchronize()
         res.update(rank=world.rank, world=world.size, backend=world.backend,
                    device=str(world.device),
@@ -2269,24 +2307,31 @@ def tum_cfg(input_dir: str) -> dict:
     return cfg
 
 
-def tum_run(input_dir: str, output: str, world=None) -> tuple:
+def tum_run(input_dir: str, output: str, world=None,
+            sync: str | None = None) -> tuple:
     """One run of the TUM multichip config on `world` (a world of one when
-    None); returns (result, the system)."""
+    None), under `sync` (default: the config's, strict); returns (result,
+    the system).  The collectives are counted over this run alone (a
+    rank's groups are made once per process and kept)."""
     import numpy as np
     import torch
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     from nice_slam_tpu_torch.eval.ate import evaluate_ate
     cfg = tum_cfg(input_dir)
+    if sync is not None:
+        cfg['sync_method'] = sync
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     t0 = time.perf_counter()
     slam = SlamSystem(cfg, device='cuda', seed=0, output=output, world=world)
     groups = {'track': slam._track_group, 'map': slam._map_group,
-              'mesh': slam._mesh_group}
-    for g in groups.values():
-        if g is not None and g.size > 1:
-            g.stats.timed = True
+              'mesh': slam._mesh_group, 'control': slam._control}
+    groups = {k: g for k, g in groups.items() if g is not None and g.size > 1}
+    start = {}
+    for name, g in groups.items():
+        g.stats.timed = True
+        start[name] = (g.stats.calls, g.stats.bytes, g.stats.seconds)
     slam.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2297,9 +2342,10 @@ def tum_run(input_dir: str, output: str, world=None) -> tuple:
     map_iters = sum(n for _, n, _ in maps)
     coll = {}
     for name, g in groups.items():
-        if g is not None and g.size > 1:
-            coll[name] = {'calls': g.stats.calls, 'bytes': g.stats.bytes,
-                          'seconds': g.stats.seconds}
+        calls, nbytes, seconds = start[name]
+        coll[name] = {'calls': g.stats.calls - calls,
+                      'bytes': g.stats.bytes - nbytes,
+                      'seconds': g.stats.seconds - seconds}
     mesh_path = os.path.join(output, 'mesh', 'final_mesh.ply')
     res = {
         'frames': int(slam.n_img), 'wall_s': wall,
@@ -2314,6 +2360,7 @@ def tum_run(input_dir: str, output: str, world=None) -> tuple:
         'track_ms_per_frame': tracked,
         'map_calls_ms': maps,
         'collectives': coll,
+        'backends': {name: g.backend for name, g in groups.items()},
         'collective_ms_per_track_iter': (
             coll['track']['seconds'] * 1e3 / track_iters
             if 'track' in coll else 0.0),
@@ -2327,6 +2374,12 @@ def tum_run(input_dir: str, output: str, world=None) -> tuple:
         'final_mesh_vertices': (mesh_vertices(mesh_path)
                                 if slam.writes else None),
     }
+    if slam._control is not None:
+        res.update(sync_method=slam.sync_method,
+                   refreshes=dict(slam.refreshes),
+                   adoptions=slam.adoptions,
+                   control_ms_per_frame=(coll.get('control', {}).get(
+                       'seconds', 0.0) * 1e3 / slam.n_img))
     return res, slam
 
 
@@ -2335,26 +2388,31 @@ def rank_tum(world, args) -> dict:
     return res
 
 
-def phase_parallel_tum() -> None:
-    """freiburg1_desk_multichip.yaml (track: rays, map: rays) from a
-    TUM-format directory of the analytic scene at 480x640: a world of one
-    in this process, then the sharded world as ranks."""
-    import torch
+def write_tum(root: str) -> tuple:
+    """The analytic scene in TUM format at freiburg1_desk's 480x640, in
+    `root`; returns (its directory, the seconds the write took)."""
     from nice_slam_tpu_torch.tools.make_fixture_dataset import write_scene
+    data = os.path.join(root, 'tum')
+    cfg = tum_cfg(data)
+    t0 = time.perf_counter()
+    write_scene({'cam': dict(cfg['cam']), 'synthetic': cfg['synthetic']},
+                'tumrgbd', data)
+    return data, time.perf_counter() - t0
+
+
+def phase_parallel_tum(root: str, data: str, write_s: float) -> tuple:
+    """freiburg1_desk_multichip.yaml (track: rays, map: rays) from the
+    TUM-format directory `data` of the analytic scene at 480x640: a world
+    of one in this process, then the sharded world as ranks.  Returns (the
+    world of one's result, the ranks')."""
+    import torch
     n = rank_count()
-    with tempfile.TemporaryDirectory() as root:
-        data = os.path.join(root, 'tum')
-        cfg = tum_cfg(data)
-        t0 = time.perf_counter()
-        write_scene({'cam': dict(cfg['cam']), 'synthetic': cfg['synthetic']},
-                    'tumrgbd', data)
-        write_s = time.perf_counter() - t0
-        one, slam = tum_run(data, os.path.join(root, 'one'))
-        del slam
-        torch.cuda.empty_cache()
-        out = os.path.join(root, 'ranks')
-        ranks = spawn_ranks('tum', n, ['--input', data, '--output-dir', out],
-                            timeout=900)
+    one, slam = tum_run(data, os.path.join(root, 'one'))
+    del slam
+    torch.cuda.empty_cache()
+    out = os.path.join(root, 'ranks')
+    ranks = spawn_ranks('tum', n, ['--input', data, '--output-dir', out],
+                        timeout=900)
     res = {'phase': 'parallel_tum',
            'config': 'configs/TUM_RGBD/freiburg1_desk_multichip.yaml',
            'world': n, 'backend': ranks[0]['backend'],
@@ -2370,15 +2428,13 @@ def phase_parallel_tum() -> None:
                                        for r in ranks}) == 1,
            'bound_ate_rmse_m': TUM_ATE_FACTOR * one['ate_rmse_m']}
     emit(res)
-    need = ('expand_corners', 'fold_corners', 'gather_rows',
-            'scatter_add_rows', 'fused_mlp')
     bad = []
     if not res['poses_bit_identical']:
         bad.append('ranks\' poses differ')
     for r in ranks:
         if not (r['finite'] and r['ate_rmse_m'] <= res['bound_ate_rmse_m']):
             bad.append(f'rank {r["rank"]} ATE {r["ate_rmse_m"]}')
-        if min(r['launches'][k] for k in need) == 0:
+        if min(r['launches'][k] for k in PAR_KERNELS) == 0:
             bad.append(f'rank {r["rank"]} kernels {r["launches"]}')
         if 'mesh' not in r['collectives'] or not r['collectives']['mesh'][
                 'calls']:
@@ -2388,6 +2444,192 @@ def phase_parallel_tum() -> None:
         bad.append('the final mesh was not written by one rank')
     if bad:
         raise AssertionError(f'parallel_tum failed: {bad}')
+    return one, ranks
+
+
+def loose_synthetic_cfg(sync: str, frames: int | None = None) -> dict:
+    """synthetic.yaml as shipped under `sync` with the tracking and the
+    mapping rays shared over the ranks (the JAX bound's setting), cut to
+    `frames` when given."""
+    from nice_slam_tpu_torch.utils.config import load_config
+    cfg = load_config('configs/Synthetic/synthetic.yaml',
+                      'configs/nice_slam.yaml')
+    cfg['verbose'] = False
+    cfg['sync_method'] = sync
+    cfg['parallel'] = {'track': 'rays', 'map': 'rays'}
+    if frames is not None:
+        cfg['synthetic']['n_frames'] = frames
+    return cfg
+
+
+def _overlap_rank_run(cfg: dict) -> dict:
+    """A synthetic run (no meshes) on this rank under the overlapped
+    schedule of `cfg`: its accuracy, its poses' digest, its adoptions, and
+    the warnings of its construction and run."""
+    import hashlib
+    import warnings
+
+    import numpy as np
+    with tempfile.TemporaryDirectory() as out, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        res, slam = run_slam(cfg, out, mesh=False)
+    keep = ('frames', 'wall_s', 'ate_rmse_m', 'max_frame_err_m',
+            'track_ms_median', 'peak_mem_bytes', 'sync_method', 'refreshes',
+            'launches')
+    row = {k: res[k] for k in keep}
+    row.update(
+        map_ms=[round(r['ms'], 1) for r in res['map_calls_ms']
+                if r['kind'] != 'coarse'],
+        poses_digest=hashlib.sha256(np.ascontiguousarray(
+            slam.estimate_c2w).tobytes()).hexdigest(),
+        adoptions=slam.adoptions, map_device=str(slam.map_device),
+        warnings=sorted({str(w.message)[:80] for w in caught}))
+    return row
+
+
+def _free_rank_run() -> dict:
+    """synthetic.yaml cut to LOOSE_FREE_FRAMES frames under free: the
+    schedule the system chose and the warnings of its construction; when
+    it kept free (ranks on distinct cards), its run."""
+    import warnings
+
+    from nice_slam_tpu_torch.engine.slam import SlamSystem
+    cfg = loose_synthetic_cfg('free', LOOSE_FREE_FRAMES)
+    with tempfile.TemporaryDirectory() as out, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        sync = SlamSystem(cfg, device='cuda', seed=0,
+                          output=out).sync_method
+    if sync == 'free':
+        return _overlap_rank_run(cfg)
+    return {'sync_method': sync, 'poses_digest': None, 'adoptions': [],
+            'warnings': sorted({str(w.message)[:80] for w in caught})}
+
+
+def rank_loose(world, args) -> dict:
+    """The parallel_loose phase on this rank: (a) synthetic.yaml under
+    loose, (b) the TUM multichip config under loose at full width, (c)
+    the free rule."""
+    syn = _overlap_rank_run(loose_synthetic_cfg('loose'))
+    tum, slam = tum_run(args.input, args.output_dir, world, sync='loose')
+    tum['map_device'] = str(slam.map_device)
+    del slam
+    return {'synthetic': syn, 'tum': tum, 'free': _free_rank_run()}
+
+
+def phase_parallel_loose(root: str, data: str, tum_one: dict,
+                         tum_strict: list) -> None:
+    """The overlapped schedules on ranks (two sharing the card on a
+    machine of one card, one a card on more): synthetic.yaml under loose
+    against the JAX bound of the same setting, the TUM multichip config
+    under loose at full width beside parallel_tum's strict ranks, and the
+    `free` rule (ranks on distinct cards run a cut synthetic.yaml under
+    free; ranks sharing one only build the system, which must fall back).
+    Every rank is one process of `spawn_ranks`, so a rank that hangs fails
+    the phase at the timeout."""
+    import torch
+    n = rank_count()
+    ranks = spawn_ranks('loose', n, ['--input', data, '--output-dir',
+                                     os.path.join(root, 'loose')],
+                        timeout=LOOSE_TIMEOUT_S)
+    syn = [r['synthetic'] for r in ranks]
+    tum = [r['tum'] for r in ranks]
+    free = [r['free'] for r in ranks]
+    distinct = len({r['device'] for r in ranks}) >= 2
+    per_rank = []
+    for r, t in zip(ranks, tum):
+        normal = [ms for kind, _, ms in t['map_calls_ms'] if kind == 'normal']
+        per_rank.append({
+            'rank': r['rank'], 'device': r['device'],
+            'map_device': t['map_device'],
+            'track_ms_per_frame_median': t['track_ms_per_frame_median'],
+            'track_ms_per_frame': t['track_ms_per_frame'],
+            'map_ms_per_normal_call': normal,
+            'refreshes': t['refreshes'],
+            'control_calls': t['collectives'].get('control', {}).get(
+                'calls', 0),
+            'control_ms_per_frame': t['control_ms_per_frame'],
+            'collective_ms': {k: v['seconds'] * 1e3
+                              for k, v in t['collectives'].items()},
+            'collective_calls': {k: v['calls']
+                                 for k, v in t['collectives'].items()},
+            'backends': t['backends'],
+            'peak_mem_bytes': t['peak_mem_bytes'],
+            'launches': t['launches'], 'ate_rmse_m': t['ate_rmse_m'],
+            'wall_s': t['wall_s']})
+    res = {'phase': 'parallel_loose', 'world': n,
+           'backend': ranks[0]['backend'],
+           'cards': sorted({r['device'] for r in ranks}),
+           'synthetic': {
+               'config': 'configs/Synthetic/synthetic.yaml, sync_method: '
+                         'loose, parallel: {track: rays, map: rays}',
+               'ranks': syn,
+               'poses_bit_identical': len({r['poses_digest']
+                                           for r in syn}) == 1,
+               'adoptions_identical': all(r['adoptions'] == syn[0]['adoptions']
+                                          for r in syn),
+               'bound_ate_rmse_m': PAR_LOOSE_BOUND_ATE_RMSE_M,
+               'bound_max_frame_err_m': PAR_LOOSE_BOUND_MAX_ERR_M},
+           'tum': {
+               'config': 'configs/TUM_RGBD/freiburg1_desk_multichip.yaml, '
+                         'sync_method: loose (cut as parallel_tum)',
+               'ranks': per_rank,
+               'strict_ranks_track_ms_median': [
+                   r['track_ms_per_frame_median'] for r in tum_strict],
+               'strict_ranks_map_ms_per_normal_call': [
+                   [ms for kind, _, ms in r['map_calls_ms']
+                    if kind == 'normal'] for r in tum_strict],
+               'world_of_one_track_ms_median': tum_one[
+                   'track_ms_per_frame_median'],
+               'world_of_one_ate_rmse_m': tum_one['ate_rmse_m'],
+               'strict_ranks_ate_rmse_m': tum_strict[0]['ate_rmse_m'],
+               'poses_bit_identical': len({t['poses_digest']
+                                           for t in tum}) == 1,
+               'poses_as_strict_ranks': (tum[0]['poses_digest']
+                                         == tum_strict[0]['poses_digest']),
+               'adoptions_identical': all(t['adoptions'] == tum[0]['adoptions']
+                                          for t in tum),
+               'bound_ate_rmse_m': TUM_ATE_FACTOR * tum_one['ate_rmse_m']},
+           'free': {
+               'ran': 'free' if distinct else 'none: loose chosen (the '
+                                              'ranks share one device)',
+               'ranks': free,
+               'poses_bit_identical': len({r['poses_digest']
+                                           for r in free}) == 1,
+               'adoptions_identical': all(
+                   r['adoptions'] == free[0]['adoptions'] for r in free)},
+           'visible_cards': torch.cuda.device_count()}
+    emit(res)
+    bad = []
+    for name in ('synthetic', 'tum', 'free'):
+        if not (res[name]['poses_bit_identical']
+                and res[name]['adoptions_identical']):
+            bad.append(f'{name}: the ranks parted')
+    for r in syn:
+        if r['sync_method'] != 'loose' or not (
+                r['ate_rmse_m'] <= PAR_LOOSE_BOUND_ATE_RMSE_M
+                and r['max_frame_err_m'] <= PAR_LOOSE_BOUND_MAX_ERR_M):
+            bad.append(f'synthetic: ATE {r["ate_rmse_m"]} / '
+                       f'{r["max_frame_err_m"]}')
+    for r, t in zip(per_rank, tum):
+        if not (t['finite'] and t['ate_rmse_m']
+                <= res['tum']['bound_ate_rmse_m']):
+            bad.append(f'tum: rank {r["rank"]} ATE {t["ate_rmse_m"]}')
+        if t['sync_method'] != 'loose' or r['map_device'] != r['device']:
+            bad.append(f'tum: rank {r["rank"]} ran {t["sync_method"]} '
+                       f'mapping on {r["map_device"]}')
+        if min(t['launches'][k] for k in PAR_KERNELS) == 0:
+            bad.append(f'tum: rank {r["rank"]} kernels {t["launches"]}')
+    fallback = ["'free'" in w for r in free for w in r['warnings']]
+    if distinct:
+        if any(r['sync_method'] != 'free' for r in free) or any(fallback):
+            bad.append('free: ranks on distinct cards did not keep free')
+    elif sum(fallback) != len(free) or any(
+            r['sync_method'] != 'loose' for r in free):
+        bad.append('free: ranks sharing a card did not fall back to loose')
+    if bad:
+        raise AssertionError(f'parallel_loose failed: {bad}')
 
 
 def rank_loose_room0(world, args) -> dict:
@@ -2808,7 +3050,8 @@ def parse_args(argv):
                     "(DIR holds that tree's ops/fused_mlp.py and "
                     'csrc/fused_mlp.cu) after the kernels phase')
     # a rank of the parallel phases (started by this script, NSTPU_* set)
-    ap.add_argument('--rank-task', choices=('parity', 'tum', 'loose_room0'),
+    ap.add_argument('--rank-task',
+                    choices=('parity', 'tum', 'loose_room0', 'loose'),
                     help=argparse.SUPPRESS)
     ap.add_argument('--out', help=argparse.SUPPRESS)
     ap.add_argument('--input', help=argparse.SUPPRESS)
@@ -2883,8 +3126,12 @@ def main(argv=None) -> int:
         lap('imap_room0')
         phase_parallel_parity()
         lap('parallel_parity')
-        phase_parallel_tum()
-        lap('parallel_tum')
+        with tempfile.TemporaryDirectory() as root:
+            data, write_s = write_tum(root)
+            tum_one, tum_strict = phase_parallel_tum(root, data, write_s)
+            lap('parallel_tum')
+            phase_parallel_loose(root, data, tum_one, tum_strict)
+            lap('parallel_loose')
         phase_pipeline(room0, loose_room0)
         lap('pipeline')
         phase_services(accuracy_c2w)

@@ -46,10 +46,17 @@ mapping rays (each rank draws its own), `parallel.map: kf` the window's
 frames (the window padded by cycling frames to a multiple of the ranks;
 each rank uploads only its frames); the sums over the ranks leave every
 rank the same bits.  With more than one rank the mesher's lattice query is
-split over them too, meshes run on the main thread, and only `strict`
-runs (the overlapped modes adopt rounds by thread timing, which would part
-the ranks).  In a world of one every backend runs the single-device
-program bit for bit.
+split over them too, and meshes run on the main thread.  Under the
+overlapped modes each rank maps on its own device (the two-device pipeline
+is a world-of-one mechanism), and the ranks agree on the rounds to adopt:
+before each frame every rank counts its leading finished rounds, and all
+take the minimum over the world in one all-reduce on a gloo group of the
+main thread's (`_control`), so every rank adopts the same round at the
+same frame, which one JAX controller's `is_ready` decides for all its
+devices.  `free` stays `free` on ranks with a card each (NCCL).  On NCCL
+ranks whose mapper and tracker both run all-reduces, the tracker's go
+through gloo (see `track_backend`).  In a world of one every backend runs
+the single-device program bit for bit.
 
 Services after each mapped frame, as in the JAX package: a checkpoint
 every `ckpt_freq` frames and at the last frame (`<output>/ckpts/`), a mesh
@@ -123,6 +130,28 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device available; pass device='cpu' to "
                            'run on the CPU')
     return device
+
+
+def map_device_for(device: torch.device, cards: int, world_size: int,
+                   overlap: bool) -> torch.device:
+    """The mapper's device: the tracker's, except under the overlapped
+    modes in a world of one with two or more cards, where the mapper takes
+    the next card (the two-device pipeline).  A rank always maps on its
+    own device."""
+    if overlap and world_size == 1 and cards >= 2:
+        return torch.device('cuda', (device.index + 1) % cards)
+    return device
+
+
+def overlap_devices(cards: int, world_size: int, backend: str) -> int:
+    """The devices the overlapped modes run on, of which `free` needs two:
+    a world of one's visible cards (the two-device pipeline); ranks on
+    NCCL, which `initialize` picks exactly when each rank has a card of
+    its own, one a rank; ranks on gloo (sharing a card, or on the CPU)
+    one."""
+    if world_size == 1:
+        return cards
+    return world_size if backend == 'nccl' else 1
 
 
 @dataclass
@@ -290,19 +319,37 @@ class SlamSystem:
         self.sync_method = cfg.get('sync_method', 'strict')
         if self.sync_method not in ('strict', 'loose', 'free'):
             raise ValueError(f'sync_method {self.sync_method!r}')
-        if self.sync_method != 'strict' and self.world.size > 1:
-            # each rank would adopt the queued rounds at frames its own
-            # thread timing picks, so the ranks' poses would part
-            raise ValueError(
-                f'sync_method: {self.sync_method!r} runs on one rank only '
-                f'(this world has {self.world.size}): the ranks would adopt '
-                f'the mapping rounds at different frames')
+        # the groups the parallel steps run on: one per thread that runs
+        # collectives (the tracker, the mapper, the mesher), and under the
+        # overlapped modes the main thread's group for host integers, on
+        # which the ranks agree on the mapping rounds to adopt
+        one = self.world.size == 1
+        # when the mapping thread and the tracker both run all-reduces at
+        # once on NCCL ranks, they would use two communicators of one card
+        # in orders that differ over the ranks: an NCCL kernel waits on the
+        # card for its peers, so a rank's device-wide synchronisation (a
+        # cudaFree, NCCL's own calls) can wait for a kernel that waits for
+        # a rank stuck behind the other communicator.  So the mapper keeps
+        # the card's one communicator and the tracker's small all-reduces
+        # go through gloo, the host
+        track_backend = ('gloo' if self.world.backend == 'nccl'
+                         and self.sync_method != 'strict'
+                         and self.par_map != 'none' else None)
+        self._track_group = (self.world if one or self.par_track == 'none'
+                             else self.world.copy('track',
+                                                  backend=track_backend))
+        self._map_group = (self.world if one or self.par_map == 'none'
+                           else self.world.copy('map'))
+        self._mesh_group = None if one else self.world.copy('mesh')
+        self._control = (None if one or self.sync_method == 'strict'
+                         else self.world.copy('control', backend='gloo'))
         if self.device.type == 'cuda' and self.device.index is None:
             self.device = torch.device('cuda', torch.cuda.current_device())
         cards = (torch.cuda.device_count() if self.device.type == 'cuda'
                  else 1)
-        if self.sync_method == 'free' and cards < 2 and not bool(
-                cfg.get('sync_force_free', False)):
+        if self.sync_method == 'free' and not bool(
+                cfg.get('sync_force_free', False)) and overlap_devices(
+                    cards, self.world.size, self.world.backend) < 2:
             # as in the JAX package on one local device: ungated back-to-
             # back mapping rounds replace the tracker's snapshot every frame
             # and contend with it for the one device
@@ -315,15 +362,13 @@ class SlamSystem:
             self.sync_method = 'loose'
         # the overlapped modes map on a thread of their own, on a stream of
         # their own, drawing pixels from a generator of their own; with a
-        # second card (a world of one) the mapper owns it: the map, the
+        # second card and a world of one the mapper owns it: the map, the
         # mapping operands and the mapper's generator and stream live
         # there, and each round's tracking snapshot is copied to the
         # tracker's card (the two-device pipeline)
         self._overlap = self.sync_method != 'strict'
-        self.map_device = self.device
-        if self._overlap and cards >= 2:
-            self.map_device = torch.device(
-                'cuda', (self.device.index + 1) % cards)
+        self.map_device = map_device_for(self.device, cards, self.world.size,
+                                         self._overlap)
         self.map_model = self.model
         if self.map_device != self.device:
             self.map_model = self.model._replace(
@@ -340,33 +385,26 @@ class SlamSystem:
         self.np_rng = np.random.default_rng(seed)
         self.map_generator = self.generator
         self._map_stream = None
-        if self._overlap:
+        rays = self.par_map == 'rays' and not one
+        if self._overlap or rays:
+            # under `parallel.map: rays` each rank draws its own mapping
+            # rays; the tracking draws (and keyframe-sharded mapping's)
+            # stay in step over the ranks
             self.map_generator = torch.Generator(
-                device=map_dev).manual_seed(seed + _MAP_SEED_OFFSET)
-            if map_dev.type == 'cuda':
-                self._map_stream = torch.cuda.Stream(map_dev)
-        elif self.par_map == 'rays' and self.world.size > 1:
-            # each rank draws its own mapping rays; the tracking draws stay
-            # in step over the ranks
-            self.map_generator = torch.Generator(device=dev).manual_seed(
-                seed + _MAP_SEED_OFFSET + self.world.rank)
+                device=map_dev).manual_seed(
+                    seed + _MAP_SEED_OFFSET + (self.world.rank if rays
+                                               else 0))
+        if self._overlap and map_dev.type == 'cuda':
+            self._map_stream = torch.cuda.Stream(map_dev)
         self._map_pool = None
-        # the groups the parallel steps run on: one per thread that runs
-        # collectives (the tracker, the mapper, the mesher)
-        one = self.world.size == 1
-        self._track_group = (self.world if one or self.par_track == 'none'
-                             else self.world.copy('track'))
-        self._map_group = (self.world if one or self.par_map == 'none'
-                           else self.world.copy('map'))
-        self._mesh_group = None if one else self.world.copy('mesh')
         # the queued mapping rounds, oldest first: (frame, future of the
         # round's tracking snapshot); and the frame of the round (or
-        # commit) the tracker's snapshot comes from.  `refreshes` counts
-        # the snapshots adopted when done and those the loose gate waited
-        # for
+        # commit) the tracker's snapshot comes from.  `adoptions` records
+        # each adoption as (frame tracked, the round's frame, whether the
+        # loose gate waited for it), the same on every rank
         self._rounds = collections.deque()
         self._snapshot_idx = -1
-        self.refreshes = {'consumed': 0, 'forced': 0}
+        self.adoptions: list[tuple[int, int, bool]] = []
 
         if not self.nice:
             # one decoder, no volumes
@@ -480,13 +518,16 @@ class SlamSystem:
         default), uploaded once."""
         device = self.device if device is None else device
         key = (idx, device)
-        if key not in self._frames:
-            self._frames[key] = (
+        # one lookup: the main thread drops frames while a mapping round
+        # reads the cache
+        frame = self._frames.get(key)
+        if frame is None:
+            frame = self._frames[key] = (
                 torch.as_tensor(color_np, dtype=torch.float32,
                                 device=device),
                 torch.as_tensor(depth_np, dtype=torch.float32,
                                 device=device))
-        return self._frames[key]
+        return frame
 
     def _cam7(self, c2w_np: np.ndarray, device=None) -> torch.Tensor:
         return tensor_from_c2w(torch.as_tensor(
@@ -520,23 +561,30 @@ class SlamSystem:
         return decoders, grids
 
     @property
+    def refreshes(self) -> dict:
+        """The snapshots adopted when done and those the loose gate waited
+        for."""
+        forced = sum(f for _, _, f in self.adoptions)
+        return {'consumed': len(self.adoptions) - forced, 'forced': forced}
+
+    @property
     def _pending_refresh(self):
         """(frame, future) of the oldest queued mapping round, or None."""
         return self._rounds[0] if self._rounds else None
 
-    def _tracking_snapshot(self):
+    def _tracking_snapshot(self, idx: int):
         if self._tracking_grids is None:
             if self._rounds:
                 # the queued rounds write the map: take the oldest's snapshot
-                self._adopt(self._rounds.popleft(), forced=False)
+                self._adopt(idx, self._rounds.popleft(), forced=False)
             else:
                 self._tracking_grids = self._build_snapshot()
                 self._snapshot_idx = self.mapping_idx
         return self._tracking_grids
 
-    def _adopt(self, entry, forced: bool) -> None:
-        """Adopt the snapshot of a mapping round, waiting for it (and
-        raising its error) if it is still running."""
+    def _adopt(self, idx: int, entry, forced: bool) -> None:
+        """Adopt the snapshot of a mapping round before tracking frame idx,
+        waiting for it (and raising its error) if it is still running."""
         pidx, future = entry
         decoders, grids = future.result()
         tensors = [g.e if isinstance(g, ExpandedGrid) else g
@@ -548,23 +596,31 @@ class SlamSystem:
                 t.record_stream(stream)
         self._tracking_grids = (decoders, grids)
         self._snapshot_idx = pidx
-        self.refreshes['forced' if forced else 'consumed'] += 1
+        self.adoptions.append((idx, pidx, forced))
 
     def _adopt_rounds(self, idx: int) -> None:
         """Before tracking frame idx: adopt the newest finished round (the
         rounds finish in order; each finished one's error is raised), then,
         under loose, wait for the oldest rounds until the snapshot is at
-        most every_frame + every_frame // 2 frames behind idx."""
+        most every_frame + every_frame // 2 frames behind idx.  With more
+        than one rank, "finished" is the least count of leading finished
+        rounds over the ranks: every rank has those finished, so none
+        waits, and every rank adopts the same round."""
+        k = 0
+        while k < len(self._rounds) and self._rounds[k][1].done():
+            k += 1
+        if self._control is not None:
+            k = self._control.min(k)
         done = None
-        while self._rounds and self._rounds[0][1].done():
+        for _ in range(k):
             done = self._rounds.popleft()
             done[1].result()
         if done is not None:
-            self._adopt(done, forced=False)
+            self._adopt(idx, done, forced=False)
         every = self.mcfg.every_frame
         while (self.sync_method == 'loose' and self._rounds
                and idx - self._snapshot_idx > every + every // 2):
-            self._adopt(self._rounds.popleft(), forced=True)
+            self._adopt(idx, self._rounds.popleft(), forced=True)
 
     # ------------------------------------------------------------------
     # tracking
@@ -584,7 +640,7 @@ class SlamSystem:
             pre = self.estimate_c2w[idx - 1]
             guess = (const_speed_init(pre, self.estimate_c2w[idx - 2])
                      if self.tcfg.const_speed and idx >= 2 else pre)
-            decoders, grids = self._tracking_snapshot()
+            decoders, grids = self._tracking_snapshot(idx)
             best_cam7, _, losses = track_frame(
                 decoders, grids, color, depth,
                 self._cam7(guess), model=self.model, rcfg=self.rcfg,
@@ -872,10 +928,13 @@ class SlamSystem:
         """Keyframes in the store once the queued rounds are done (BA's
         activation counts them): a round appends its frame when map_frame's
         keyframe rule holds for it."""
+        return len(set(self.keyframes.indices) | self._queued_keyframes())
+
+    def _queued_keyframes(self) -> set:
+        """The frames the queued rounds will append to the keyframes."""
         every = self.mcfg.keyframe_every
-        queued = {p for p, _ in self._rounds
-                  if p % every == 0 or p == self.n_img - 2}
-        return len(set(self.keyframes.indices) | queued)
+        return {p for p, _ in self._rounds
+                if p % every == 0 or p == self.n_img - 2}
 
     def _map_async(self, idx, color_np, depth_np, gt_c2w_np, calls, frame,
                    cur_c2w):
@@ -1034,14 +1093,18 @@ class SlamSystem:
             future, self._mesh_future = self._mesh_future, None
             future.result()
 
-    def _log_metrics(self, idx: int) -> None:
+    def _log_metrics(self, idx: int, mapped: bool) -> None:
+        """The frame's line of metrics.jsonl.  `mapped` and the keyframe
+        count are the schedule's, queued rounds included (as the JAX
+        package's, which commits a round's host state when it dispatches
+        it), not what a mapping thread has finished by now."""
         if not self.writes:
             return
         gt_err = float(np.linalg.norm(
             self.estimate_c2w[idx][:3, 3] - self.gt_c2w[idx][:3, 3]))
         rec = {'frame': idx, 'pose_err_vs_gt': round(gt_err, 5),
-               'mapped': self.mapping_idx == idx,
-               'n_keyframes': len(self.keyframes),
+               'mapped': mapped,
+               'n_keyframes': self._keyframes_after_rounds(),
                **self.timers.summary()}
         with open(self.metrics_path, 'a') as f:
             f.write(json.dumps(rec) + '\n')
@@ -1106,16 +1169,18 @@ class SlamSystem:
                         clean_mesh=True, get_mask_use_all_frames=True)
         if self.check_invariants:
             self._assert_invariants(idx)
-        self._log_metrics(idx)
+        self._log_metrics(idx, mapped)
         if self.live is not None:
             self.live.update(idx, self.n_img, self.estimate_c2w,
                              self.gt_c2w,
                              mesh_dir=os.path.join(self.output, 'mesh'),
                              panel_path=self._last_panel,
                              timers=self.timers.summary())
-        # keep device copies of keyframes only
+        # keep device copies of keyframes only (a queued round's frame
+        # counts as the keyframe it will be)
         if idx not in self.keyframes.indices \
-                and idx not in self.coarse_keyframes.indices:
+                and idx not in self.coarse_keyframes.indices \
+                and idx not in self._queued_keyframes():
             for key in [k for k in list(self._frames) if k[0] == idx]:
                 del self._frames[key]
 

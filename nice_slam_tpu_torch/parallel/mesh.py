@@ -17,7 +17,10 @@ CUDA tensors (ranks that share one card talk through gloo):
 * `all_gather_tiled`: each rank's [n, ...] slice placed in a zeroed
   [size * n, ...] buffer and summed, so every rank holds the slices in rank
   order (x + 0 is x, so the result is each slice's own bits);
-* `max`: the element-wise maximum over the ranks.
+* `max`: the element-wise maximum over the ranks;
+* `min`: the minimum of one host integer over the ranks (a CPU int64
+  all-reduce, on a gloo group: the overlapped schedules' agreement on the
+  mapping rounds to adopt).
 
 Every rank of a group gets the same bits from a sum: the reduction is
 computed once per element and sent to all.  A group of one rank does no
@@ -27,7 +30,9 @@ single-device code bit for bit.
 `split` makes sub-groups: `torch.distributed.new_group` must be called by
 every rank of the world for every group, in the same order, so each rank
 passes the whole partition and keeps the part that holds it.  Threads that
-run collectives at the same time each need a group of their own.
+run collectives at the same time each need a group of their own.  A
+sub-group may take another backend than the world's (`backend='gloo'`: a
+group for host integers beside an NCCL world).
 """
 
 from __future__ import annotations
@@ -135,17 +140,30 @@ class RankGroup:
         self._all_reduce(out, dist.ReduceOp.MAX)
         return out.view(x.shape)
 
+    def min(self, value: int) -> int:
+        """The minimum of a host integer over the ranks, in one all-reduce
+        of a CPU int64 tensor (the group's backend must take CPU tensors:
+        gloo)."""
+        if self.size == 1:
+            return int(value)
+        buf = torch.tensor([int(value)], dtype=torch.int64)
+        self._all_reduce(buf, dist.ReduceOp.MIN)
+        return int(buf.item())
+
     # -- sub-groups ----------------------------------------------------
 
-    def split(self, partition, tag: str = '') -> 'RankGroup':
+    def split(self, partition, tag: str = '',
+              backend: str | None = None) -> 'RankGroup':
         """The sub-group holding this rank, of a partition of the world's
         ranks.  Only the world's group splits, and every rank calls it with
         the same partition (torch.distributed.new_group is collective over
         the world); `tag` keeps groups of the same ranks apart (one per
-        thread that runs collectives).  A partition already made with the
-        same tag is reused."""
+        thread that runs collectives); `backend` is the sub-groups'
+        (default: the world's).  A partition already made with the same tag
+        and backend is reused."""
         partition = tuple(tuple(int(r) for r in part) for part in partition)
-        key = (partition, tag)
+        backend = backend or self.backend
+        key = (partition, tag, backend)
         if key not in self._split_cache:
             if self.size > 1 and self.size != dist.get_world_size():
                 raise ValueError('only the world group splits')
@@ -153,12 +171,13 @@ class RankGroup:
             for part in partition:
                 if len(part) > 1:
                     # every rank of the world takes part in new_group
-                    pg = dist.new_group([self.ranks[r] for r in part])
+                    pg = dist.new_group([self.ranks[r] for r in part],
+                                        backend=backend)
                 else:
                     pg = None
                 if self.rank in part:
                     mine = RankGroup(len(part), part.index(self.rank),
-                                     self.device, self.backend
+                                     self.device, backend
                                      if len(part) > 1 else 'none', pg,
                                      [self.ranks[r] for r in part])
             if mine is None:
@@ -167,9 +186,10 @@ class RankGroup:
             self._split_cache[key] = mine
         return self._split_cache[key]
 
-    def copy(self, tag: str) -> 'RankGroup':
-        """A group of the same ranks with a process group of its own."""
-        return self.split([range(self.size)], tag=tag)
+    def copy(self, tag: str, backend: str | None = None) -> 'RankGroup':
+        """A group of the same ranks with a process group of its own (and
+        `backend`, by default the world's)."""
+        return self.split([range(self.size)], tag=tag, backend=backend)
 
 
 def world_of_one(device) -> RankGroup:

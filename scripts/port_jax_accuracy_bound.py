@@ -4,7 +4,8 @@ config, several seeds, on the CPU.
     JAX_PLATFORMS=cpu python scripts/port_jax_accuracy_bound.py \
         [--config configs/Synthetic/synthetic.yaml] [--seeds 0 1 2] \
         [--package jax|torch] [--device cpu|cuda] [--recon] \
-        [--sync strict|loose|free] [--imap] [--disk replica|...]
+        [--sync strict|loose|free] [--imap] [--disk replica|...] \
+        [--parallel N]
 
 Runs the whole sequence through `SlamSystem` of the JAX package (default)
 or of the port (`--package torch`, on `--device`) for each seed and prints
@@ -24,6 +25,13 @@ the reconstruction bound: 1.5x the worst seed's accuracy and completion
 --sync sets the config's `sync_method` (default: the config's own).  The
 JAX package then runs on one local device, as the port does: its 'free'
 falls back to 'loose' there, and its two-device pipeline stays off.
+
+--parallel N (JAX package only) runs it on N forced host devices
+(`--xla_force_host_platform_device_count=N`, as tests/conftest.py does)
+with `parallel: {track: rays, map: rays}`: one controller drives the N
+devices, and under --sync loose or free its sharded mapping is dispatched
+asynchronously and adopted when ready (the setting the port runs as N
+ranks).
 
 --imap runs iMAP* (`SlamSystem(cfg, nice=False)`) with configs/imap.yaml
 as the base config, as `run.py --imap` does (e.g. --config
@@ -111,7 +119,18 @@ def main() -> None:
                                        'cofusion', 'azure'),
                     help="read the config's analytic scene from files in "
                     "this dataset's format, written by the port's writer")
+    ap.add_argument('--parallel', type=int, default=0, metavar='N',
+                    help='the JAX package on N forced host devices with '
+                    'parallel: {track: rays, map: rays}')
     args = ap.parse_args()
+    if args.parallel:
+        if args.package != 'jax':
+            ap.error('--parallel runs the JAX package (the port runs ranks: '
+                     'chip_smoke.py parallel_loose)')
+        # before the first import of jax
+        os.environ['XLA_FLAGS'] = (
+            os.environ.get('XLA_FLAGS', '') + ' --xla_force_host_platform_'
+            f'device_count={args.parallel}').strip()
 
     import numpy as np
 
@@ -122,6 +141,8 @@ def main() -> None:
     cfg = load_config(args.config, base_config(not args.imap))
     if args.sync is not None:
         cfg['sync_method'] = args.sync
+    if args.parallel:
+        cfg['parallel'] = {'track': 'rays', 'map': 'rays'}
     rows = []
     with tempfile.TemporaryDirectory() as data:
         t0 = time.perf_counter()
@@ -152,6 +173,7 @@ def main() -> None:
     summary = {'package': args.package, 'config': args.config,
                'method': 'imap' if args.imap else 'nice',
                'sync_method': args.sync or 'as loaded', 'seeds': args.seeds,
+               'parallel_devices': args.parallel or None,
                'disk': args.disk, 'write_s': write_s,
                'worst_ate_rmse_m': worst_rmse,
                'worst_max_frame_err_m': worst_max,

@@ -1,10 +1,12 @@
 """The parallel phases of chip_smoke.py alone, on the GPUs this machine
-has: the build, then parallel_parity and parallel_tum (two ranks sharing
-the card on one GPU, one rank a card on more); with two or more cards also
-the strict and loose room0 runs without meshes and the pipeline phase
-(the loose run on the two-device pipeline beside one card).
+has: the build, then parallel_parity, parallel_tum and parallel_loose (two
+ranks sharing the card on one GPU, one rank a card on more); with two or
+more cards also the strict and loose room0 runs without meshes and the
+pipeline phase (the loose run on the two-device pipeline beside one
+card).  `--phases parallel_loose` runs the build and that phase alone
+(with parallel_tum before it, whose runs it is compared with).
 
-    python scripts/port_parallel_phases.py
+    python scripts/port_parallel_phases.py [--phases P ...]
 
 Prints chip_smoke.py's JSON lines of those phases and each phase's
 seconds; exits 1 if a phase fails.  A cheaper call than the whole script
@@ -13,6 +15,7 @@ when only the parallel backends changed.
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import tempfile
@@ -24,27 +27,44 @@ sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
 
+PHASES = ('parallel_parity', 'parallel_tum', 'parallel_loose', 'pipeline')
+
 
 def main() -> int:
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--phases', nargs='+', default=PHASES, choices=PHASES)
+    phases = ap.parse_args().phases
     if not torch.cuda.is_available():
         print('port_parallel_phases: no CUDA device', file=sys.stderr)
         return 2
     os.chdir(cs.REPO)
     t0 = time.perf_counter()
+
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        print(f'{name} {time.perf_counter() - t:.1f} s', flush=True)
+        return out
+
     try:
         print(cs.phase_card(), flush=True)
         cs.phase_build()
-        for name, phase in (('parallel_parity', cs.phase_parallel_parity),
-                            ('parallel_tum', cs.phase_parallel_tum)):
-            t = time.perf_counter()
-            phase()
-            print(f'{name} {time.perf_counter() - t:.1f} s', flush=True)
-        if torch.cuda.device_count() >= 2:
+        if 'parallel_parity' in phases:
+            timed('parallel_parity', cs.phase_parallel_parity)
+        if 'parallel_tum' in phases or 'parallel_loose' in phases:
+            with tempfile.TemporaryDirectory() as root:
+                data, write_s = cs.write_tum(root)
+                one, strict = timed('parallel_tum', cs.phase_parallel_tum,
+                                    root, data, write_s)
+                if 'parallel_loose' in phases:
+                    timed('parallel_loose', cs.phase_parallel_loose, root,
+                          data, one, strict)
+        if 'pipeline' in phases and torch.cuda.device_count() >= 2:
             with tempfile.TemporaryDirectory() as out:
                 strict, _ = cs.run_slam(cs.room0_cfg(), out, mesh=False)
             cs.phase_pipeline(strict, cs.phase_overlap(strict))
-        else:
+        elif 'pipeline' in phases:
             cs.phase_pipeline({}, {})
     except Exception:
         traceback.print_exc()
