@@ -217,6 +217,15 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                max(1, max|CPU|); then dryrun_multichip: one rank a card on
                NCCL with two or more cards, else two gloo ranks sharing the
                card
+ 17. bench     the port's measurement entry points, each as a user runs
+               it (python -m, a process of its own): nice_slam_tpu_torch.
+               bench, tools.bench_budget for replica, scannet, tum and
+               apartment, tools.bench_imap at its default (100 mapping
+               iterations) and tools.bench_sync_modes 5 strict loose free;
+               their result lines printed, every number finite, the
+               figures above 0, `device` this H100, expand, fold, gather
+               and scatter launched (none on the iMAP* path), the free row
+               run as free without the fallback warning
 Then the kernel table line {"kernels": [...]} (one entry per TPU kernel of
 the repository; launches from phase 5, the probes' from the roofline
 phase; the scatter's times from the real-index case), the card line, and last {"ok": true, "device": {...}}.  Any
@@ -1923,6 +1932,16 @@ TUM_ATE_FACTOR = 5.0
 # the kernels every rank of the parallel phases must launch
 PAR_KERNELS = ('expand_corners', 'fold_corners', 'gather_rows',
                'scatter_add_rows', 'fused_mlp')
+# check C1 (scripts/port_parallel_phases.py --phases loose_c1): per
+# parallel.map beside track: rays, 1.5x the worst of seeds 0-2 of the JAX
+# package on synthetic.yaml under sync_method: loose on two forced host
+# devices (JAX_PLATFORMS=cpu python scripts/port_jax_accuracy_bound.py
+# --sync loose --parallel 2 --parallel-map M --seeds S, one process a
+# seed): (ATE RMSE, largest per-frame error); worst of map: kf 0.040349 m
+# and 0.106751 m, of map: none 0.024735 m and 0.091880 m (all seed 0)
+C1_BOUNDS = {'kf': (1.5 * 0.04034936912498007, 1.5 * 0.1067507192492485),
+             'none': (1.5 * 0.024734503409652938,
+                      1.5 * 0.09188017249107361)}
 # parallel_loose: the frames of its free run (ranks on distinct cards),
 # and the seconds its ranks may take (a rank that hangs in a collective
 # fails the phase)
@@ -2018,7 +2037,8 @@ def run_rank_task(task: str, out: str, args) -> int:
     try:
         res = {'parity': rank_parity, 'tum': rank_tum,
                'loose_room0': rank_loose_room0,
-               'loose': rank_loose}[task](world, args)
+               'loose': rank_loose, 'loose_c1': rank_loose_c1}[task](
+                   world, args)
         torch.cuda.synchronize()
         res.update(rank=world.rank, world=world.size, backend=world.backend,
                    device=str(world.device),
@@ -2447,16 +2467,17 @@ def phase_parallel_tum(root: str, data: str, write_s: float) -> tuple:
     return one, ranks
 
 
-def loose_synthetic_cfg(sync: str, frames: int | None = None) -> dict:
-    """synthetic.yaml as shipped under `sync` with the tracking and the
-    mapping rays shared over the ranks (the JAX bound's setting), cut to
-    `frames` when given."""
+def loose_synthetic_cfg(sync: str, frames: int | None = None,
+                        par_map: str = 'rays') -> dict:
+    """synthetic.yaml as shipped under `sync` with the tracking rays and
+    the mapping (`par_map`: its rays by default, the JAX bound's setting)
+    shared over the ranks, cut to `frames` when given."""
     from nice_slam_tpu_torch.utils.config import load_config
     cfg = load_config('configs/Synthetic/synthetic.yaml',
                       'configs/nice_slam.yaml')
     cfg['verbose'] = False
     cfg['sync_method'] = sync
-    cfg['parallel'] = {'track': 'rays', 'map': 'rays'}
+    cfg['parallel'] = {'track': 'rays', 'map': par_map}
     if frames is not None:
         cfg['synthetic']['n_frames'] = frames
     return cfg
@@ -2630,6 +2651,58 @@ def phase_parallel_loose(root: str, data: str, tum_one: dict,
         bad.append('free: ranks sharing a card did not fall back to loose')
     if bad:
         raise AssertionError(f'parallel_loose failed: {bad}')
+
+
+def rank_loose_c1(world, args) -> dict:
+    """Check C1 on this rank: synthetic.yaml under loose with the tracking
+    rays shared and the mapping window's frames shared (map: kf), then
+    with mapping on each rank alone (map: none)."""
+    return {m: _overlap_rank_run(loose_synthetic_cfg('loose', par_map=m))
+            for m in C1_BOUNDS}
+
+
+def phase_loose_c1() -> None:
+    """Check C1, the two NCCL settings of the overlapped schedules that
+    parallel_loose does not run (one rank a card on more than one card,
+    two ranks sharing it on one): synthetic.yaml under loose with
+    parallel: {track: rays, map: kf}, where the tracker's all-reduces go
+    through gloo beside the window's NCCL ones, and {track: rays} alone,
+    where the tracker's NCCL group runs on the main thread while the
+    mapping thread launches kernels on its own stream.  Per setting: the
+    ranks' poses and adoption records identical, ATE RMSE and largest
+    per-frame error within 1.5x the worst of JAX seeds 0-2 in the same
+    setting, and no rank outliving LOOSE_TIMEOUT_S (a hang).  Not run by
+    main(): scripts/port_parallel_phases.py --phases loose_c1."""
+    import torch
+    n = rank_count()
+    ranks = spawn_ranks('loose_c1', n, timeout=LOOSE_TIMEOUT_S)
+    res = {'phase': 'loose_c1', 'world': n, 'backend': ranks[0]['backend'],
+           'cards': sorted({r['device'] for r in ranks}),
+           'visible_cards': torch.cuda.device_count()}
+    bad = []
+    for m, (b_rmse, b_max) in C1_BOUNDS.items():
+        rows = [r[m] for r in ranks]
+        res[m] = {
+            'config': 'configs/Synthetic/synthetic.yaml, sync_method: '
+                      f'loose, parallel: {{track: rays, map: {m}}}',
+            'ranks': rows,
+            'poses_bit_identical': len({r['poses_digest']
+                                        for r in rows}) == 1,
+            'adoptions_identical': all(r['adoptions'] == rows[0]['adoptions']
+                                       for r in rows),
+            'bound_ate_rmse_m': b_rmse, 'bound_max_frame_err_m': b_max}
+        if not (res[m]['poses_bit_identical']
+                and res[m]['adoptions_identical']):
+            bad.append(f'{m}: the ranks parted')
+        for r in rows:
+            if r['sync_method'] != 'loose' or not (
+                    r['ate_rmse_m'] <= b_rmse
+                    and r['max_frame_err_m'] <= b_max):
+                bad.append(f'{m}: {r["sync_method"]}, ATE '
+                           f'{r["ate_rmse_m"]} / {r["max_frame_err_m"]}')
+    emit(res)
+    if bad:
+        raise AssertionError(f'loose_c1 failed: {bad}')
 
 
 def rank_loose_room0(world, args) -> dict:
@@ -2914,6 +2987,96 @@ def phase_entry() -> None:
         raise AssertionError(f'dryrun_multichip printed {lines}')
 
 
+# the bench phase: the port's measurement entry points, each run as a user
+# runs it (python -m ...), its last stdout line parsed
+BENCH_RUNS = (
+    ('bench', ['nice_slam_tpu_torch.bench']),
+    *((f'bench_budget {s}', ['nice_slam_tpu_torch.tools.bench_budget', s])
+      for s in ('replica', 'scannet', 'tum', 'apartment')),
+    ('bench_imap', ['nice_slam_tpu_torch.tools.bench_imap']),
+    ('bench_sync_modes', ['nice_slam_tpu_torch.tools.bench_sync_modes', '5',
+                          'strict', 'loose', 'free']))
+# the figures that must be above 0 (every number must be finite)
+BENCH_POSITIVE = ('value', 'vs_baseline', 'tracking_only_fps',
+                  'track_ms_per_frame', 'map_iters_per_s', 'map_device_util',
+                  'dispatch_ms', 'expand_gbps', 'expand_hbm_frac',
+                  'track_s_per_frame', 'map_s_per_call', 'wall_s',
+                  'fps_incl_compiles', 'ate_rmse_m', 'track_s', 'map_s',
+                  'mesh_s')
+BENCH_KERNELS = ('expand_corners', 'fold_corners', 'gather_rows',
+                 'scatter_add_rows')
+BENCH_TIMEOUT_S = 300
+
+
+def _bench_run(module_args: list) -> tuple:
+    """`python -m MODULE ARGS` from the checkout: (its JSON lines, its
+    text lines, its stderr, seconds); raises when it fails."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, '-m', *module_args], cwd=REPO,
+                         capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f'{" ".join(module_args)} exited '
+                             f'{res.returncode}:\n{res.stderr[-4000:]}')
+    lines = res.stdout.strip().splitlines()
+    rows = [json.loads(ln) for ln in lines if ln.startswith('{')]
+    if not lines or not lines[-1].startswith('{'):
+        raise AssertionError(f'{module_args[0]}: no JSON last line')
+    return (rows, [ln for ln in lines if not ln.startswith('{')],
+            res.stderr, time.perf_counter() - t0)
+
+
+def _bench_faults(name: str, row: dict, card: str) -> list:
+    """What is wrong with one result line: a number not finite, a figure
+    not above 0, a device that is not the card, a row kernel of the NICE
+    path not launched (the iMAP* path launches none)."""
+    bad = [f'{name}: {k} = {v}' for k, v in row.items()
+           if isinstance(v, (int, float)) and not isinstance(v, bool)
+           and not math.isfinite(v)]
+    bad += [f'{name}: {k} = {row[k]}' for k in BENCH_POSITIVE
+            if k in row and not (isinstance(row[k], (int, float))
+                                 and row[k] > 0)]
+    if row.get('device') != card or 'H100' not in card:
+        bad.append(f'{name}: device {row.get("device")!r}, card {card!r}')
+    launched = [row['launches'][k] > 0 for k in BENCH_KERNELS]
+    if name == 'bench_imap':
+        if any(row['launches'].values()):
+            bad.append(f'{name}: launches {row["launches"]}')
+    elif not all(launched):
+        bad.append(f'{name}: launches {row["launches"]}')
+    return bad
+
+
+def phase_bench() -> None:
+    """The port's measurement entry points as a user runs them: bench.py;
+    tools/bench_budget.py for replica, scannet, tum and apartment;
+    tools/bench_imap.py at its default; tools/bench_sync_modes.py 5 strict
+    loose free.  Each result line printed; every number finite, the
+    figures of BENCH_POSITIVE above 0, `device` this H100, the four row
+    kernels of the NICE path launched (none on the iMAP* path), and the
+    free row run as free with no fallback warning."""
+    import torch
+    from nice_slam_tpu_torch.utils.measure import card
+    name_limit = card(torch.device('cuda', 0))
+    torch.cuda.empty_cache()     # the card's memory to the entry points
+    bad, seconds = [], {}
+    for name, module_args in BENCH_RUNS:
+        rows, text, err, sec = _bench_run(module_args)
+        seconds[name] = sec
+        for row in rows:
+            emit({'phase': 'bench', 'run': name, **row})
+            bad += _bench_faults(name, row, name_limit)
+        if name == 'bench_imap' and len(text) != 2:
+            bad.append(f'{name}: printed {text}')
+        if name == 'bench_sync_modes':
+            modes = [r['mode'] for r in rows]
+            if modes != ['strict', 'loose', 'free'] or "'free'" in err:
+                bad.append(f'{name}: ran {modes}, stderr {err[-400:]}')
+    emit({'phase': 'bench', 'seconds': seconds})
+    if bad:
+        raise AssertionError(f'bench failed: {bad}')
+
+
 def _entry(row, name, source, replaces, launches, err, ms, plain_ms,
            bound_ms, library_ms, shape, bound_by='bytes', **extra):
     return {'row': row, 'name': name, 'route': 'cuda',
@@ -3051,7 +3214,8 @@ def parse_args(argv):
                     'csrc/fused_mlp.cu) after the kernels phase')
     # a rank of the parallel phases (started by this script, NSTPU_* set)
     ap.add_argument('--rank-task',
-                    choices=('parity', 'tum', 'loose_room0', 'loose'),
+                    choices=('parity', 'tum', 'loose_room0', 'loose',
+                             'loose_c1'),
                     help=argparse.SUPPRESS)
     ap.add_argument('--out', help=argparse.SUPPRESS)
     ap.add_argument('--input', help=argparse.SUPPRESS)
@@ -3140,6 +3304,8 @@ def main(argv=None) -> int:
         lap('pretrain')
         phase_entry()
         lap('entry')
+        phase_bench()
+        lap('bench')
         if any(k in sys.modules for k in ('jax', 'nice_slam_tpu')):
             raise AssertionError('the JAX package was imported')
     except Exception:

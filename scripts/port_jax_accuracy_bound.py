@@ -5,7 +5,7 @@ config, several seeds, on the CPU.
         [--config configs/Synthetic/synthetic.yaml] [--seeds 0 1 2] \
         [--package jax|torch] [--device cpu|cuda] [--recon] \
         [--sync strict|loose|free] [--imap] [--disk replica|...] \
-        [--parallel N]
+        [--parallel N [--parallel-map rays|kf|none]]
 
 Runs the whole sequence through `SlamSystem` of the JAX package (default)
 or of the port (`--package torch`, on `--device`) for each seed and prints
@@ -31,7 +31,9 @@ falls back to 'loose' there, and its two-device pipeline stays off.
 with `parallel: {track: rays, map: rays}`: one controller drives the N
 devices, and under --sync loose or free its sharded mapping is dispatched
 asynchronously and adopted when ready (the setting the port runs as N
-ranks).
+ranks).  --parallel-map kf shares the mapping window's frames instead,
+--parallel-map none leaves mapping on one device (the tracking rays stay
+shared).
 
 --imap runs iMAP* (`SlamSystem(cfg, nice=False)`) with configs/imap.yaml
 as the base config, as `run.py --imap` does (e.g. --config
@@ -122,6 +124,9 @@ def main() -> None:
     ap.add_argument('--parallel', type=int, default=0, metavar='N',
                     help='the JAX package on N forced host devices with '
                     'parallel: {track: rays, map: rays}')
+    ap.add_argument('--parallel-map', choices=('rays', 'kf', 'none'),
+                    default='rays',
+                    help="with --parallel: the config's parallel.map")
     args = ap.parse_args()
     if args.parallel:
         if args.package != 'jax':
@@ -142,7 +147,7 @@ def main() -> None:
     if args.sync is not None:
         cfg['sync_method'] = args.sync
     if args.parallel:
-        cfg['parallel'] = {'track': 'rays', 'map': 'rays'}
+        cfg['parallel'] = {'track': 'rays', 'map': args.parallel_map}
     rows = []
     with tempfile.TemporaryDirectory() as data:
         t0 = time.perf_counter()
@@ -174,6 +179,7 @@ def main() -> None:
                'method': 'imap' if args.imap else 'nice',
                'sync_method': args.sync or 'as loaded', 'seeds': args.seeds,
                'parallel_devices': args.parallel or None,
+               'parallel': cfg.get('parallel'),
                'disk': args.disk, 'write_s': write_s,
                'worst_ate_rmse_m': worst_rmse,
                'worst_max_frame_err_m': worst_max,

@@ -5,6 +5,9 @@ more cards also the strict and loose room0 runs without meshes and the
 pipeline phase (the loose run on the two-device pipeline beside one
 card).  `--phases parallel_loose` runs the build and that phase alone
 (with parallel_tum before it, whose runs it is compared with).
+`--phases loose_c1` runs check C1, which no default phase runs:
+synthetic.yaml under loose with parallel: {track: rays, map: kf} and with
+{track: rays} alone, on the ranks (chip_smoke.phase_loose_c1).
 
     python scripts/port_parallel_phases.py [--phases P ...]
 
@@ -33,7 +36,8 @@ PHASES = ('parallel_parity', 'parallel_tum', 'parallel_loose', 'pipeline')
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--phases', nargs='+', default=PHASES, choices=PHASES)
+    ap.add_argument('--phases', nargs='+', default=PHASES,
+                    choices=PHASES + ('loose_c1',))
     phases = ap.parse_args().phases
     if not torch.cuda.is_available():
         print('port_parallel_phases: no CUDA device', file=sys.stderr)
@@ -60,6 +64,8 @@ def main() -> int:
                 if 'parallel_loose' in phases:
                     timed('parallel_loose', cs.phase_parallel_loose, root,
                           data, one, strict)
+        if 'loose_c1' in phases:
+            timed('loose_c1', cs.phase_loose_c1)
         if 'pipeline' in phases and torch.cuda.device_count() >= 2:
             with tempfile.TemporaryDirectory() as out:
                 strict, _ = cs.run_slam(cs.room0_cfg(), out, mesh=False)

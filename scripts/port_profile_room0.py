@@ -71,24 +71,6 @@ def imap_bounds_ms(slam) -> dict:
             / FP32_FLOP_PER_S * 1e3}
 
 
-def busy_share(events, wall_us: float) -> tuple[float, int]:
-    """Union of device kernel intervals over the wall time, and the number
-    of kernels."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type.name == 'CUDA')
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / wall_us, len(spans)
-
-
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument('--out', default='build/profile_room0')
@@ -102,6 +84,7 @@ def main() -> None:
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     from nice_slam_tpu_torch.ops import gather as ga
     from nice_slam_tpu_torch.utils.config import load_config
+    from nice_slam_tpu_torch.utils.measure import busy_share, kernel_spans
 
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
@@ -143,7 +126,7 @@ def main() -> None:
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        share, n_kernels = busy_share(prof.events(), wall * 1e6)
+        share, n_kernels = busy_share(kernel_spans(prof), wall * 1e6)
         avg = prof.key_averages()
         top = sorted((e for e in avg if e.device_time_total > 0),
                      key=lambda e: -e.device_time_total)[:12]
