@@ -226,6 +226,22 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                figures above 0, `device` this H100, expand, fold, gather
                and scatter launched (none on the iMAP* path), the free row
                run as free without the fallback warning
+ 18. measure   started before phase 14 and collected before phase 17,
+               so it runs beside phases 14-16 (their gates are bits and
+               files, not times; it keeps the script inside its time
+               limit): the JAX system's last measurement scripts as the
+               port's tools, three processes at once: bench_demo 60 (the Demo
+               budget at 480x640 under loose to frame 59: the first map,
+               rounds every 5 frames, a 256^3 mesh at frame 50, the final
+               mesh and the checkpoint) and bench_imap_e2e 6 as a user runs
+               them, and bench_fused_eval (256^3), profile_steps,
+               profile_components, ablate_track_step, ablate_map_step (one
+               repetition each) and diagnose_strict 6 (3 frames under
+               cProfile) as calls of their main() in one process; every
+               number finite, `device` this H100, the row kernels of each
+               path launched (none on the iMAP* path), the fused and plain
+               lattice occupancies within the kernel's precision bound, the
+               ablations' full case the production call's bits
 Then the kernel table line {"kernels": [...]} (one entry per TPU kernel of
 the repository; launches from phase 5, the probes' from the roofline
 phase; the scatter's times from the real-index case), the card line, and last {"ok": true, "device": {...}}.  Any
@@ -345,12 +361,8 @@ POINTS_BATCH = 262144          # meshing.points_batch: one lattice chunk
 RAGGED_N = [1, 15, 16, 17, 31, 63, 64, 65, 1023, 1025, 4097,
             POINTS_BATCH + 13]
 MLP_TOL = 1e-4                 # x max(1, max|plain|)
-# x max(1, max|plain|) at the three decoders' 262,144-point chunks: FP32
-# precision.  MLP_TOL alone fails 1x and 2xTF32 products (4.1e-3 to 6.4e-3
-# against 8.2e-4 to 1.1e-3) but not the fast hardware sine __sinf (1.8e-4
-# to 2.1e-4); this fails the sine too, and the kernel (3xTF32, precise
-# sinf) is off by 2.4e-5 to 5.0e-5 (PERF.md, the fused MLP)
-MLP_PRECISION_TOL = 1e-5
+# at the three decoders' 262,144-point chunks also the kernel's precision
+# bound, ops/fused_mlp.PRECISION_TOL x max(1, max|plain|)
 SCATTER_TOL = 1e-5             # x max(1, max|index_add_|)
 # the gather studies' shapes: scripts/studies/proto_gather_sweep.py (width
 # sweep, ~60 MB tables, 96K uniform indices), proto_pallas_gather.py (240K
@@ -639,7 +651,7 @@ def phase_fused_mlp(ptxas: list) -> dict:
                                      f'{tol}) for {name} at N={n}')
             err = max(err, e)
             if n == POINTS_BATCH and name in MLPS:
-                precision = MLP_PRECISION_TOL * max(
+                precision = fm.PRECISION_TOL * max(
                     1.0, float(want.abs().max()))
                 if not e <= precision:
                     raise AssertionError(
@@ -664,7 +676,7 @@ def phase_fused_mlp(ptxas: list) -> dict:
                                                    / row['ms'])
     emit({'phase': 'kernels_fused_mlp', 'max_abs_err': err,
           'tolerance': f'{MLP_TOL} x max(1, max|plain|)',
-          'precision_bound': f'{MLP_PRECISION_TOL} x max(1, max|plain|) '
+          'precision_bound': f'{fm.PRECISION_TOL} x max(1, max|plain|) '
                              'at the chunks',
           'ragged_n': RAGGED_N, 'main_shapes': times,
           'kernel_config': configs, 'ptxas': ptxas,
@@ -3077,6 +3089,170 @@ def phase_bench() -> None:
         raise AssertionError(f'bench failed: {bad}')
 
 
+# the measure phase: the JAX system's last measurement scripts, ported as
+# tools/bench_demo, bench_imap_e2e, bench_fused_eval, profile_steps,
+# profile_components, ablate_track_step, ablate_map_step and
+# diagnose_strict, at full width with depth and repetitions cut (their
+# full depths: scripts/port_measure_phases.py).  The two SLAM runs as a
+# user runs them (python -m, a process each), the short ones as calls of
+# their main() in one more process; the three run at once, so their times
+# share the card and the host and are not the measurements of PERF.md
+MEASURE_RUNS = (
+    # the Demo budget under loose to frame 59: the first map, rounds every
+    # 5 frames, a 256^3 mesh at frame 50, the final mesh and the checkpoint
+    ('bench_demo', ['nice_slam_tpu_torch.tools.bench_demo', '60']),
+    ('bench_imap_e2e', ['nice_slam_tpu_torch.tools.bench_imap_e2e', '6']))
+# one repetition each (the script's limit of 1,050 s of 1,200: the
+# phase is the three processes' longest, which these set unless cut)
+MEASURE_SHORT = (
+    ('bench_fused_eval', {'reps': 1}),
+    ('profile_steps', {'track_frames': 1, 'map_calls': 1}),
+    ('profile_components', {'n': 1}),
+    ('ablate_track_step', {'reps': 1}),
+    ('ablate_map_step', {'reps': 1}),
+    # the first map and 2 frames unprofiled, then 3 under cProfile: a
+    # tracked frame, and the last (mapped, meshed, checkpointed)
+    ('diagnose_strict', {'n_frames': 6, 'warm': 3}))
+# the row kernels each run must launch after its set-up (the lattice
+# query's and the tracked frame's volumes are expanded before the counts
+# start); the iMAP* path launches none
+MEASURE_KERNELS = {
+    'bench_demo': BENCH_KERNELS + ('fused_mlp',),
+    'bench_imap_e2e': (),
+    'bench_fused_eval': ('gather_rows', 'fused_mlp'),
+    'profile_steps': BENCH_KERNELS,
+    'profile_components': BENCH_KERNELS,
+    'ablate_track_step': ('gather_rows',),
+    'ablate_map_step': BENCH_KERNELS,
+    'diagnose_strict': BENCH_KERNELS + ('fused_mlp',)}
+MEASURE_TIMEOUT_S = 600
+_MEASURE_SHORT_CHILD = """
+import importlib, json, sys
+for name, kwargs in json.loads(sys.argv[1]):
+    row = importlib.import_module('nice_slam_tpu_torch.tools.' + name).main(
+        **kwargs)
+    print('MEASURE ' + json.dumps({'run': name, **row}), flush=True)
+"""
+
+
+def _numbers(obj):
+    """Every int or float in a nested result (bools left out)."""
+    if isinstance(obj, dict):
+        for v in obj.values():
+            yield from _numbers(v)
+    elif isinstance(obj, list):
+        for v in obj:
+            yield from _numbers(v)
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        yield obj
+
+
+def _measure_faults(name: str, row: dict, card: str) -> list:
+    """What is wrong with one entry point's result: a number not finite,
+    a device that is not the card, a kernel of its path not launched (on
+    the iMAP* path one launched), a gate of its own failed."""
+    bad = [f'{name}: not finite'] if not all(
+        math.isfinite(v) for v in _numbers(row)) else []
+    if row.get('device') != card or 'H100' not in card:
+        bad.append(f'{name}: device {row.get("device")!r}, card {card!r}')
+    want = MEASURE_KERNELS[name]
+    launches = row['launches']
+    if (not all(launches.get(k, 0) > 0 for k in want)
+            or (not want and any(launches.values()))):
+        bad.append(f'{name}: launches {launches}')
+    checks = {
+        'bench_demo': lambda r: (r['mode'] == 'loose'
+                                 and r['frames_tracked'] == 60
+                                 and r['meshes'] == 2
+                                 and r['checkpoints'] == 1
+                                 and r['peak_mem_gb'] > 0),
+        'bench_imap_e2e': lambda r: (r['frames_tracked'] == 6
+                                     and r['peak_mem_gb'] > 0),
+        'bench_fused_eval': lambda r: (r['agree'] and r['resolution'] == 256
+                                       and r['peak_mem_gb'] > 0),
+        'ablate_track_step': lambda r: (r['full_matches_production']
+                                        and len(r['cases']) == 6),
+        'ablate_map_step': lambda r: (r['full_matches_production']
+                                      and len(r['cases']) == 7),
+        'diagnose_strict': lambda r: len(r['top']) > 0}
+    try:
+        passed = checks[name](row) if name in checks else True
+    except KeyError as key:
+        passed = False
+        bad.append(f'{name}: no {key} in its result')
+    if not passed:
+        bad.append(f'{name}: its gate failed')
+    return bad
+
+
+def start_measure() -> dict:
+    """Start the three processes of the measure phase (MEASURE_RUNS, and
+    MEASURE_SHORT in one process); each writes to files of its own, so
+    none waits on a full pipe.  `finish_measure` collects them."""
+    tmp = tempfile.TemporaryDirectory(prefix='measure_')
+    cmds = {name: [sys.executable, '-m', *args]
+            for name, args in MEASURE_RUNS}
+    cmds['short'] = [sys.executable, '-c', _MEASURE_SHORT_CHILD,
+                     json.dumps(MEASURE_SHORT)]
+    files = {name: (open(os.path.join(tmp.name, f'{name}.out'), 'w+'),
+                    open(os.path.join(tmp.name, f'{name}.err'), 'w+'))
+             for name in cmds}
+    procs = {name: subprocess.Popen(cmd, cwd=REPO, stdout=files[name][0],
+                                    stderr=files[name][1], text=True)
+             for name, cmd in cmds.items()}
+    return {'tmp': tmp, 'files': files, 'procs': procs,
+            't0': time.perf_counter()}
+
+
+def stop_measure(run: dict) -> None:
+    """Kill what is left of a started measure phase and drop its files."""
+    for name, proc in run['procs'].items():
+        proc.kill()
+        proc.wait()
+        for f in run['files'][name]:
+            f.close()
+    run['tmp'].cleanup()
+
+
+def finish_measure(run: dict) -> None:
+    """Wait for the measure phase's processes; each result line printed
+    (the cProfile table cut to its first five calls), and every run held
+    to _measure_faults."""
+    import torch
+    from nice_slam_tpu_torch.utils.measure import card
+    name_limit = card(torch.device('cuda', 0))
+    outs, seconds = {}, {}
+    try:
+        for name, proc in run['procs'].items():
+            proc.wait(timeout=max(1.0, MEASURE_TIMEOUT_S
+                                  - (time.perf_counter() - run['t0'])))
+            seconds[name] = time.perf_counter() - run['t0']
+            for f in run['files'][name]:
+                f.seek(0)
+            out, err = (f.read() for f in run['files'][name])
+            if proc.returncode != 0:
+                raise AssertionError(f'measure {name} exited '
+                                     f'{proc.returncode}:\n{err[-4000:]}')
+            outs[name] = out
+    finally:
+        stop_measure(run)
+    rows = {name: json.loads(outs[name].strip().splitlines()[-1])
+            for name, _ in MEASURE_RUNS}
+    for ln in outs['short'].splitlines():
+        if ln.startswith('MEASURE '):
+            row = json.loads(ln[len('MEASURE '):])
+            rows[row.pop('run')] = row
+    missing = [n for n in MEASURE_KERNELS if n not in rows]
+    bad = [f'no result from {missing}'] if missing else []
+    for name, row in rows.items():
+        shown = dict(row, top=row['top'][:5]) if 'top' in row else row
+        emit({'phase': 'measure', 'run': name, **shown})
+        bad += _measure_faults(name, row, name_limit)
+    emit({'phase': 'measure', 'seconds': seconds})
+    if bad:
+        raise AssertionError(f'measure failed: {bad}')
+
+
 def _entry(row, name, source, replaces, launches, err, ms, plain_ms,
            bound_ms, library_ms, shape, bound_by='bytes', **extra):
     return {'row': row, 'name': name, 'route': 'cuda',
@@ -3242,6 +3418,7 @@ def main(argv=None) -> int:
     if args.rank_task:
         return run_rank_task(args.rank_task, args.out, args)
     seconds = {}
+    measure = None
     t0 = time.perf_counter()
 
     def lap(name):
@@ -3298,18 +3475,27 @@ def main(argv=None) -> int:
             lap('parallel_loose')
         phase_pipeline(room0, loose_room0)
         lap('pipeline')
+        # the measure phase's processes run beside the next three phases,
+        # whose gates are bits and files, not times (the script's time
+        # limit); their times are not measurements while it runs
+        measure = start_measure()
         phase_services(accuracy_c2w)
         lap('services')
         phase_pretrain()
         lap('pretrain')
         phase_entry()
         lap('entry')
+        finish_measure(measure)
+        measure = None
+        lap('measure')
         phase_bench()
         lap('bench')
         if any(k in sys.modules for k in ('jax', 'nice_slam_tpu')):
             raise AssertionError('the JAX package was imported')
     except Exception:
         traceback.print_exc()
+        if measure is not None:
+            stop_measure(measure)
         return 1
     emit({'phase': 'seconds', **seconds})
     emit({'kernels': kernel_table(kern, mlp, room0, gather, roof)})

@@ -53,6 +53,13 @@ C_DIMS, OUT_DIMS = (32, 64), (1, 4)
 # the kernel's padded widths: the embedding to k8 tiles, the head to an n8
 # tile
 EMBED_PAD, HEAD_PAD = 96, 8
+# the kernel's precision bound, x max(1, max|plain|), at a 262,144-point
+# lattice chunk: FP32 precision.  1e-4 alone fails 1x and 2xTF32 products
+# (4.1e-3 to 6.4e-3 against 8.2e-4 to 1.1e-3) but not the fast hardware
+# sine __sinf (1.8e-4 to 2.1e-4); this fails the sine too, and the kernel
+# (3xTF32, precise sinf) is off by 2.4e-5 to 5.0e-5 (PERF.md, the fused
+# MLP)
+PRECISION_TOL = 1e-5
 
 _lib = None
 

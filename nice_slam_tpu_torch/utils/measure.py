@@ -1,6 +1,6 @@
-"""Measurement helpers of the port's entry points (`bench.py`,
-`tools/bench_budget.py`, `tools/bench_imap.py`, `tools/bench_sync_modes.py`)
-and of `scripts/port_profile_room0.py`.
+"""Measurement helpers of the port's entry points (`bench.py` and the
+`tools/bench_*`, `profile_*`, `ablate_*` and `diagnose_strict` scripts) and
+of `scripts/port_profile_room0.py`.
 
 - `wall_s(fn, device)`: the host clock around `fn()` with the device
   synchronized on both sides, so the time holds the device work.  (The
@@ -8,6 +8,9 @@ and of `scripts/port_profile_room0.py`.
   alone.)
 - `event_ms(fn, device, reps)`: the median per call of `fn`, one call
   between two CUDA events at a time (the host clock on the CPU).
+- `timeit(fn, device, n)`: the JAX profile_components' pair, ms per call
+  synchronized after every call (median) and ms per call of n calls
+  launched back to back with one synchronize (pipelined).
 - `busy_share(kernel_spans(prof), wall_us)`: the union of the device's
   kernel intervals in a `torch.profiler` trace over a call's wall time;
   `busy_share_of(fn, device)` runs `fn` under the profiler and returns
@@ -16,6 +19,13 @@ and of `scripts/port_profile_room0.py`.
   `LAUNCHES` (ops/expand.py, ops/gather.py, ops/fused_mlp.py,
   ops/roofline.py).  A wrapper counts a launch only on a CUDA tensor, so on
   the CPU every count stays 0.
+- `build_kernels(device)`: the row kernels' libraries and the mesher's
+  host library built before a clock starts (on the CPU nothing).
+- `reset_peak(device)` / `peak_mem_gb(device)`: the peak of
+  `torch.cuda.max_memory_allocated` in GB since the reset; None on the CPU.
+- `no_sort()`: a context in which `torch.sort` leaves its values unsorted
+  (the renderer merges its stratified and surface samples without the
+  depth sort), the ablation scripts' timing-only variant (WRONG math).
 - `card(device)`: the card's name and power limit as `nvidia-smi
   --query-gpu=name,power.limit --format=csv,noheader` gives them, read
   once; 'cpu' on the CPU.
@@ -26,6 +36,7 @@ and of `scripts/port_profile_room0.py`.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import statistics
 import subprocess
@@ -67,6 +78,16 @@ def event_ms(fn, device: torch.device, reps: int = 21) -> float:
         else:
             times.append(wall_s(fn, device)[1] * 1e3)
     return statistics.median(times)
+
+
+def timeit(fn, device: torch.device, n: int = 20) -> tuple[float, float]:
+    """(median ms of n calls each synchronized, ms per call of n calls
+    launched back to back and synchronized once) after one warm-up call."""
+    fn()
+    sync(device)
+    lat = statistics.median(wall_s(fn, device)[1] for _ in range(n))
+    _, total = wall_s(lambda: [fn() for _ in range(n)], device)
+    return lat * 1e3, total / n * 1e3
 
 
 def kernel_spans(prof) -> list[tuple[float, float]]:
@@ -124,6 +145,55 @@ def launch_counts() -> dict:
     for mod in _counters():
         out.update(mod.LAUNCHES)
     return out
+
+
+def build_kernels(device: torch.device) -> None:
+    """Load the libraries of the kernels on the SLAM path and of the
+    mesher, building those missing or older than their sources (a library
+    is built at its first use otherwise, inside whatever is being timed);
+    nothing on the CPU."""
+    if device.type != 'cuda':
+        return
+    from nice_slam_tpu_torch.mesh import native
+    from nice_slam_tpu_torch.ops import expand, fused_mlp, gather
+    for mod in (expand, gather, fused_mlp):
+        mod._library()
+    native.get_lib()
+
+
+def reset_peak(device: torch.device) -> None:
+    if device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_mem_gb(device: torch.device) -> float | None:
+    """`torch.cuda.max_memory_allocated` in GB since `reset_peak`; None
+    on the CPU."""
+    if device.type != 'cuda':
+        return None
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+@contextlib.contextmanager
+def no_sort():
+    """`torch.sort` as the identity on its values (WRONG math, for timing
+    only), as the JAX ablation scripts' `jnp.sort`: the renderer merges its
+    stratified and surface samples unsorted, and the tracker's masked
+    median reads the unsorted depths.  A stable sort, whose indices order
+    the importance samples (the JAX renderer's `argsort`, which the JAX
+    scripts leave), still sorts.  Restored on exit, also on an error."""
+    real = torch.sort
+
+    def identity(x, dim=-1, descending=False, stable=False, **kw):
+        if stable:
+            return real(x, dim=dim, descending=descending, stable=True, **kw)
+        return torch.return_types.sort((x, None))
+
+    torch.sort = identity
+    try:
+        yield
+    finally:
+        torch.sort = real
 
 
 @functools.cache

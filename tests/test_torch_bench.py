@@ -16,7 +16,8 @@ tools/bench_imap.py and tools/bench_sync_modes.py (scripts/bench_*.py).
 (d) Each entry point end to end on the CPU at a tiny size (keyword sizes
     of its main(), or a tiny config for bench_budget): its last line
     carries the JAX script's keys.
-(e) Without CUDA and without a CPU request each entry point raises.
+(e) Without CUDA and without a CPU request each entry point raises, this
+    file's and those of tests/test_torch_measure_scripts.py.
 About 80 s in one process, 43 s of it the JAX tracked frame run op by op.
 """
 
@@ -350,13 +351,20 @@ def test_bench_sync_modes_end_to_end_on_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize('entry', ['bench', 'bench_budget', 'bench_imap',
-                                   'bench_sync_modes'])
+                                   'bench_sync_modes', 'bench_demo',
+                                   'bench_imap_e2e', 'bench_fused_eval',
+                                   'profile_steps', 'profile_components',
+                                   'ablate_track_step', 'ablate_map_step',
+                                   'diagnose_strict'])
 def test_entry_points_need_cuda_unless_asked_for_the_cpu(entry, monkeypatch):
+    import importlib
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     run = {'bench': lambda: bench.main(),
            'bench_budget': lambda: bench_budget.main('replica'),
            'bench_imap': lambda: bench_imap.main(),
-           'bench_sync_modes': lambda: bench_sync_modes.main(3)}[entry]
+           'bench_sync_modes': lambda: bench_sync_modes.main(3)}.get(
+        entry, lambda: importlib.import_module(
+            f'nice_slam_tpu_torch.tools.{entry}').main())
     with pytest.raises(RuntimeError, match='no CUDA device'):
         run()
 
