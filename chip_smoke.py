@@ -35,7 +35,16 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                (DIR/fused_mlp.py, DIR/fused_mlp.cu, built into build/)
                against this tree's at the three chunks, old, new, new, old,
                the new one required faster at each (phase fused_mlp_ab);
-               then the port's model on the card against the port on the CPU
+               then the port's model on the card against the port on the CPU;
+               then the decoder stack's bfloat16 products
+               (models/precision.py, `aten::mm.dtype`) at room0_imap's
+               hidden layer [65536, 256] @ [256, 256] and its embedding
+               [65536, 3] @ [3, 93] (and at 4,097 rows), one and three
+               passes with a bias, forward and both gradients, each element
+               within 2 (K + 2) 2^-24 (|A|.|B| + |bias|) of the plain
+               version and the error's rms within 16 sqrt(K) 2^-24 of it
+               (phase precision), with the one-pass product's time beside
+               float32 torch.mm's
      gather    the row gather (bit-exact against table[idx]) and its
                scatter-add backward (within 1e-5 x max(1, max|index_add_|),
                bit-equal to index_put_ with accumulate and between two
@@ -127,7 +136,9 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                in both
   8. imap_accuracy  iMAP* (SlamSystem(cfg, nice=False)) on
                configs/Synthetic/synthetic_imap.yaml over configs/imap.yaml
-               (40 frames, the cut budgets in the YAML), writing its
+               as shipped, its decoder products one bfloat16 pass each
+               (model.decoder_matmul_precision, checked and printed; 40
+               frames, the cut budgets in the YAML), writing its
                checkpoints and final 128^3 mesh: ATE RMSE and the largest
                per-frame error held to 1.5x the worst of JAX seeds 0-2, the
                mesh's accuracy and completion to 1.5x and its completion
@@ -139,13 +150,16 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
   9. imap_room0  configs/Replica/room0_imap.yaml over configs/imap.yaml at
                its full width (680x1200, 5000 px x 50 tracking iterations,
                5000 px x 300 mapping iterations as 3 outer x 100, 32 + 12
-               samples, hidden 256, the regulation on) on 7 frames of the
+               samples, hidden 256, the regulation on) on 6 frames of the
                analytic scene inside room0's scaled bound, iters_first cut
                to 300, no final color refine, one 256^3 mesh (no eval_rec
-               mesh), then one 680x1200 render_image: ms per tracked frame
-               (median and range), ms per normal mapping call, mesh
-               seconds, render ms, peak memory, and the ATE, gated only to
-               be finite
+               mesh), then one 680x1200 render_image, at imap.yaml's
+               bfloat16 decoder products: ms per tracked frame (median and
+               range), ms per normal mapping call, mesh seconds, render ms,
+               peak memory, and the ATE, gated only to be finite; the last
+               frame's tracking and its normal mapping call (frame 5) run
+               under torch.profiler: wall ms, device ms (the union of their
+               kernels' intervals) and busy share
  10. parallel_parity  the parallel backends on ranks (parallel/): two
                ranks sharing the card (gloo) on a machine of one card, one
                rank a card (NCCL) on more, each this script started with
@@ -220,8 +234,8 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
  17. bench     the port's measurement entry points, each as a user runs
                it (python -m, a process of its own): nice_slam_tpu_torch.
                bench, tools.bench_budget for replica, scannet, tum and
-               apartment, tools.bench_imap at its default (100 mapping
-               iterations) and tools.bench_sync_modes 5 strict loose free;
+               apartment, tools.bench_imap 30 (30 mapping iterations a
+               call) and tools.bench_sync_modes 5 strict loose free;
                their result lines printed, every number finite, the
                figures above 0, `device` this H100, expand, fold, gather
                and scatter launched (none on the iMAP* path), the free row
@@ -230,11 +244,14 @@ Run from the root of a checkout.  Phases, each printed as a JSON line:
                so it runs beside phases 14-16 (their gates are bits and
                files, not times; it keeps the script inside its time
                limit): the JAX system's last measurement scripts as the
-               port's tools, three processes at once: bench_demo 60 (the Demo
+               port's tools, four processes at once: bench_demo 60 (the Demo
                budget at 480x640 under loose to frame 59: the first map,
                rounds every 5 frames, a 256^3 mesh at frame 50, the final
-               mesh and the checkpoint) and bench_imap_e2e 6 as a user runs
-               them, and bench_fused_eval (256^3), profile_steps,
+               mesh and the checkpoint), bench_imap_e2e 6 and
+               bench_precision 10 --orbit-frames 4 (the iMAP* mapping call
+               and the NICE orbit at float32, three and one bfloat16
+               passes) as a user runs them, and bench_fused_eval (256^3),
+               profile_steps,
                profile_components, ablate_track_step, ablate_map_step (one
                repetition each) and diagnose_strict 6 (3 frames under
                cProfile) as calls of their main() in one process; every
@@ -341,6 +358,12 @@ LOOSE_ROOM0_FACTOR = 5.0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM FP32 without tensor cores (same)
 TF32_FLOP_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (same)
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (same)
+
+# the decoder stack's bfloat16 products (models/precision.py) at room0_imap's
+# shapes: a hidden layer [N, 256] @ [256, 256] and the Fourier embedding
+# [N, 3] @ [3, 93], at 65,536 points; M x K x N
+PRECISION_SHAPES = {'hidden': (65536, 256, 256), 'embedding': (65536, 3, 93)}
 
 # room0's volumes (models/grids.grid_shapes of configs/Replica/room0.yaml)
 MAIN_SHAPES = {'coarse': ((11, 8, 7), 32), 'middle': ((37, 28, 22), 32),
@@ -780,6 +803,107 @@ def phase_model_parity() -> None:
     if not diff < 1e-3:
         raise AssertionError(f'render on the card differs from the CPU by '
                              f'{diff}')
+
+
+def _plain_products(a: tuple, b: tuple):
+    """The plain version of models/precision.products: the same passes of
+    split bf16 operands, each as a float32 product of their values."""
+    from nice_slam_tpu_torch.models.precision import pass_plain
+    pairs = [(0, 0)] if len(a) == 1 else [(0, 1), (1, 0), (0, 0)]
+    return sum(pass_plain(a[i], b[j]) for i, j in pairs)
+
+
+def phase_precision() -> dict:
+    """The decoder stack's bfloat16 products on the card (`aten::mm.dtype`,
+    cuBLAS bf16 with a float32 output) against their plain version: one and
+    three passes through `precision.linear` (bias added in float32), forward
+    and both gradients through the autograd Function, at PRECISION_SHAPES
+    and at 4,097 rows (a weight gradient over a count that cuBLAS summed
+    wrong unless padded to a multiple of 8, precision.py's note).  Each
+    side sums
+    K exact products and the bias in float32 in its own order, so each is
+    within (K + 2) 2^-24 (|A|.|B| + |bias|) of the exact sum and they agree
+    within twice that, per element (|A|.|B| the product of the operands'
+    magnitudes, summed over the passes); and since that worst case grows
+    with K, the error's rms over all elements is also held to 16 sqrt(K)
+    2^-24 of the plain version's (float32 sums in two orders differ by
+    ~sqrt(K) 2^-24; one product of 4,097 left out, by ~1.5%).  Times at
+    PRECISION_SHAPES: the one-pass product alone and with its rounding,
+    three passes, float32 torch.mm (TF32 off) and the plain version, beside
+    the bf16 tensor-core, FP32-core and bytes bounds; the device operations
+    of one one-pass product."""
+    import torch
+    from nice_slam_tpu_torch.models import precision as P
+    if not torch._C._dispatch_has_kernel_for_dispatch_key('aten::mm.dtype',
+                                                          'CUDA'):
+        raise AssertionError('this torch has no CUDA aten::mm.dtype')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    res = {}
+    for shape_name, (m, k, n) in (*PRECISION_SHAPES.items(),
+                                  ('odd_rows', (4097, 256, 256))):
+        x = torch.randn((m, k), generator=gen, device='cuda')
+        w = torch.randn((k, n), generator=gen, device='cuda') / k ** 0.5
+        g = torch.randn((m, n), generator=gen, device='cuda')
+        bias = torch.randn((n,), generator=gen, device='cuda')
+        row = {'shape': [m, k, n]}
+        for prec in ('bfloat16', 'BF16_BF16_F32_X3'):
+            n_passes = P.passes(prec)
+            xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+            out = P.linear(xl, wl.t(), bias, prec)
+            out.backward(g)
+            xs, ws, gs = (P.split(t, n_passes) for t in (x, w, g))
+            t = lambda ts: tuple(u.t() for u in ts)
+            cases = {'forward': (out.detach(), xs, ws, k, bias),
+                     'd_x': (xl.grad, gs, t(ws), n, 0.0),
+                     'd_w': (wl.grad, t(xs), gs, m, 0.0)}
+            errs = {}
+            for case, (got, a, b, depth, add) in cases.items():
+                want = _plain_products(a, b) + add
+                diff = (got - want).abs()
+                mag = _plain_products(tuple(u.abs() for u in a),
+                                      tuple(u.abs() for u in b)) + abs(add)
+                excess = float((diff - 2 * (depth + 2) * 2.0 ** -24
+                                * mag).max())
+                rms = float(diff.pow(2).mean().sqrt()
+                            / want.pow(2).mean().sqrt())
+                errs[case] = {'max_abs_err': float(diff.max()),
+                              'max_rel_to_bound': float(
+                                  (diff / (2 * (depth + 2) * 2.0 ** -24
+                                           * mag).clamp_min(1e-30)).max()),
+                              'rms_rel_err': rms}
+                if excess > 0 or rms > 16 * depth ** 0.5 * 2.0 ** -24:
+                    raise AssertionError(
+                        f'{prec} {case} at {shape_name} off its plain '
+                        f'version: {excess} past the bound, rms {rms}')
+            row[prec] = errs
+            del xl, wl, out
+        if shape_name not in PRECISION_SHAPES:
+            res[shape_name] = row
+            continue
+        xb, wb = x.bfloat16(), w.bfloat16()
+        flop = 2.0 * m * k * n
+        row.update(
+            one_pass_ms=cuda_ms(lambda: P.one_pass(xb, wb)),
+            one_pass_with_rounding_ms=cuda_ms(
+                lambda: P.mm(x, w, 'bfloat16')),
+            three_pass_ms=cuda_ms(lambda: P.mm(x, w, 'BF16_BF16_F32_X3')),
+            float32_mm_ms=cuda_ms(lambda: x @ w),
+            plain_ms=cuda_ms(lambda: P.pass_plain(xb, wb)),
+            bf16_bound_ms=max(flop / BF16_FLOP_PER_S,
+                              (2 * (m * k + k * n) + 4 * m * n)
+                              / HBM_BYTES_PER_S) * 1e3,
+            fp32_bound_ms=max(flop / FP32_FLOP_PER_S,
+                              4 * (m * k + k * n + m * n)
+                              / HBM_BYTES_PER_S) * 1e3,
+            one_pass_device_ops=[short_name(op) for op, _ in device_ops(
+                lambda: P.one_pass(xb, wb))])
+        res[shape_name] = row
+        del x, w, g, bias, xb, wb
+    emit({'phase': 'precision',
+          'tolerance': '2 (K + 2) 2^-24 x (|A|.|B| + |bias|) per element; '
+                       'rms 16 sqrt(K) 2^-24 of the plain version',
+          **res})
+    return res
 
 
 def ray_walk_index(n: int, rows: int, gen):
@@ -1498,8 +1622,19 @@ def phase_overlap(strict_room0: dict) -> dict:
     return room0
 
 
-def phase_imap_accuracy() -> None:
-    """iMAP* on synthetic_imap.yaml, held to the JAX package's seeds."""
+def _check_precision(slam, precision: str | None) -> str:
+    """The decoder precision the run used: `precision` when one was
+    given, else imap.yaml's bfloat16 as shipped."""
+    used = slam.dcfg.mm_precision
+    if used != (precision or 'bfloat16'):
+        raise AssertionError(f'the iMAP* run used decoder precision '
+                             f'{used!r}')
+    return used
+
+
+def phase_imap_accuracy(precision: str | None = None) -> None:
+    """iMAP* on synthetic_imap.yaml, held to the JAX package's seeds; at
+    imap.yaml's bfloat16 decoder products, or at `precision`."""
     from nice_slam_tpu_torch.eval.recon import calc_3d_metric
     from nice_slam_tpu_torch.io.datasets import synthetic_gt_mesh
     from nice_slam_tpu_torch.mesh.mesher import load_ply
@@ -1507,8 +1642,11 @@ def phase_imap_accuracy() -> None:
     cfg = load_config('configs/Synthetic/synthetic_imap.yaml',
                       'configs/imap.yaml')
     cfg['verbose'] = False
+    if precision is not None:
+        cfg['model']['decoder_matmul_precision'] = precision
     with tempfile.TemporaryDirectory() as out:
         res, slam = run_slam(cfg, out, nice=False)
+        res['decoder_matmul_precision'] = _check_precision(slam, precision)
         mesh_path = os.path.join(out, 'mesh', 'final_mesh.ply')
         res['mesh_vertices'] = mesh_vertices(mesh_path)
         rec_v, rec_t = load_ply(mesh_path)
@@ -1541,10 +1679,10 @@ def phase_imap_accuracy() -> None:
 def imap_room0_cfg() -> dict:
     """room0_imap.yaml over imap.yaml on the analytic scene at room0's
     intrinsics and frame size, its box inside room0's bound after imap's
-    scale 0.1; depth cut to 7 frames (the first map and normal mapping
-    calls at frames 5 and 6), iters_first to 300, the last frame's color
-    refine (5 x 300 iterations on a window of 10) and the eval_rec mesh
-    left out."""
+    scale 0.1; depth cut to 6 frames (the first map and a normal mapping
+    call at frame 5), iters_first to 300, the last frame's color refine
+    (5 x 300 iterations on a window of 10) and the eval_rec mesh left
+    out."""
     from nice_slam_tpu_torch.utils.config import load_config
     cfg = load_config('configs/Replica/room0_imap.yaml', 'configs/imap.yaml')
     box = [[-2.8, 8.8], [-3.1, 5.4], [-3.4, 3.2]]
@@ -1553,7 +1691,7 @@ def imap_room0_cfg() -> dict:
             raise AssertionError('the scene box is not inside room0\'s '
                                  'bound')
     cfg['dataset'] = 'synthetic'
-    cfg['synthetic'] = {'n_frames': 7, 'radius': 0.8, 'step': 0.02,
+    cfg['synthetic'] = {'n_frames': 6, 'radius': 0.8, 'step': 0.02,
                         'noise': 0.003, 'box': box}
     cfg['mapping']['iters_first'] = 300
     cfg['mapping']['color_refine'] = False
@@ -1562,14 +1700,41 @@ def imap_room0_cfg() -> dict:
     return cfg
 
 
-def phase_imap_room0() -> None:
-    """iMAP* at room0_imap's full width: times, one mesh, one render."""
+def phase_imap_room0(precision: str | None = None) -> None:
+    """iMAP* at room0_imap's full width: times, one mesh, one render; at
+    imap.yaml's bfloat16 decoder products, or at `precision`.  The last
+    frame's tracking and its normal mapping call run under torch.profiler,
+    for their device ms (the union of their kernels' intervals); their
+    times in the run's lists hold the profiler's cost."""
     import numpy as np
     import torch
     from nice_slam_tpu_torch.render.renderer import render_image
+    from nice_slam_tpu_torch.utils.measure import profiled
     cfg = imap_room0_cfg()
+    if precision is not None:
+        cfg['model']['decoder_matmul_precision'] = precision
+    dev = torch.device('cuda')
+    last = cfg['synthetic']['n_frames'] - 1
+    under_profiler = {}
+
+    def profile_last_frame(slam):
+        for name in ('track', 'map_frame'):
+            def call(idx, *args, _run=getattr(slam, name), _name=name, **kw):
+                if idx != last:
+                    return _run(idx, *args, **kw)
+                out = []
+                under_profiler[_name] = profiled(
+                    lambda: out.append(_run(idx, *args, **kw)), dev)[0]
+                return out[0]
+            setattr(slam, name, call)
+
     with tempfile.TemporaryDirectory() as out:
-        res, slam = run_slam(cfg, out, nice=False)
+        res, slam = run_slam(cfg, out, nice=False,
+                             on_start=profile_last_frame)
+        res['decoder_matmul_precision'] = _check_precision(slam, precision)
+        tracked = [s * 1e3 for idx, s in slam.timers.track if idx > 0]
+        normal = [r['ms'] for r in res['map_calls_ms']
+                  if r['kind'] == 'normal']
         res['mesh_vertices'] = mesh_vertices(
             os.path.join(out, 'mesh', 'final_mesh.ply'))
         idx = slam.n_img - 1
@@ -1588,8 +1753,10 @@ def phase_imap_room0() -> None:
         render_peak = int(torch.cuda.max_memory_allocated())
         finite_render = bool(torch.isfinite(depth).all()
                              and torch.isfinite(color).all())
-    tracked = [s * 1e3 for idx, s in slam.timers.track if idx > 0]
-    normal = [r['ms'] for r in res['map_calls_ms'] if r['kind'] == 'normal']
+    if (set(under_profiler) != {'track', 'map_frame'}
+            or slam.timers.maps[-1][:2] != (last, 'normal')):
+        raise AssertionError(f'the profiled calls were not frame {last}\'s '
+                             f'tracking and normal mapping call')
     rc, tc = slam.rcfg, slam.tcfg
     res.update(
         phase='imap_room0', config='configs/Replica/room0_imap.yaml',
@@ -1601,6 +1768,9 @@ def phase_imap_room0() -> None:
         hidden=slam.dcfg.imap_hidden,
         track_ms_range=[min(tracked), max(tracked)],
         map_normal_ms=normal,
+        profiled_frame=last,
+        track_frame_profiled=under_profiler['track'],
+        map_normal_profiled=under_profiler['map_frame'],
         mesh_resolution=slam.mesher.cfg.resolution,
         render_ms=render_ms, render_peak_mem_bytes=render_peak)
     emit(res)
@@ -3005,7 +3175,8 @@ BENCH_RUNS = (
     ('bench', ['nice_slam_tpu_torch.bench']),
     *((f'bench_budget {s}', ['nice_slam_tpu_torch.tools.bench_budget', s])
       for s in ('replica', 'scannet', 'tum', 'apartment')),
-    ('bench_imap', ['nice_slam_tpu_torch.tools.bench_imap']),
+    # 30 mapping iterations a call (its default 100: the script's time)
+    ('bench_imap', ['nice_slam_tpu_torch.tools.bench_imap', '30']),
     ('bench_sync_modes', ['nice_slam_tpu_torch.tools.bench_sync_modes', '5',
                           'strict', 'loose', 'free']))
 # the figures that must be above 0 (every number must be finite)
@@ -3062,7 +3233,7 @@ def _bench_faults(name: str, row: dict, card: str) -> list:
 def phase_bench() -> None:
     """The port's measurement entry points as a user runs them: bench.py;
     tools/bench_budget.py for replica, scannet, tum and apartment;
-    tools/bench_imap.py at its default; tools/bench_sync_modes.py 5 strict
+    tools/bench_imap.py 30; tools/bench_sync_modes.py 5 strict
     loose free.  Each result line printed; every number finite, the
     figures of BENCH_POSITIVE above 0, `device` this H100, the four row
     kernels of the NICE path launched (none on the iMAP* path), and the
@@ -3093,17 +3264,22 @@ def phase_bench() -> None:
 # tools/bench_demo, bench_imap_e2e, bench_fused_eval, profile_steps,
 # profile_components, ablate_track_step, ablate_map_step and
 # diagnose_strict, at full width with depth and repetitions cut (their
-# full depths: scripts/port_measure_phases.py).  The two SLAM runs as a
-# user runs them (python -m, a process each), the short ones as calls of
-# their main() in one more process; the three run at once, so their times
+# full depths: scripts/port_measure_phases.py).  The two SLAM runs and the
+# precision study as a user runs them (python -m, a process each), the
+# short ones as calls of their main() in one more process; the four run at
+# once, so their times
 # share the card and the host and are not the measurements of PERF.md
 MEASURE_RUNS = (
     # the Demo budget under loose to frame 59: the first map, rounds every
     # 5 frames, a 256^3 mesh at frame 50, the final mesh and the checkpoint
     ('bench_demo', ['nice_slam_tpu_torch.tools.bench_demo', '60']),
-    ('bench_imap_e2e', ['nice_slam_tpu_torch.tools.bench_imap_e2e', '6']))
+    ('bench_imap_e2e', ['nice_slam_tpu_torch.tools.bench_imap_e2e', '6']),
+    # the decoder precision study: 10 mapping iterations a precision and a
+    # 4-frame orbit (scripts/port_measure_phases.py: 60 and 8)
+    ('bench_precision', ['nice_slam_tpu_torch.tools.bench_precision', '10',
+                         '--orbit-frames', '4']))
 # one repetition each (the script's limit of 1,050 s of 1,200: the
-# phase is the three processes' longest, which these set unless cut)
+# phase is the four processes' longest, which these set unless cut)
 MEASURE_SHORT = (
     ('bench_fused_eval', {'reps': 1}),
     ('profile_steps', {'track_frames': 1, 'map_calls': 1}),
@@ -3119,6 +3295,7 @@ MEASURE_SHORT = (
 MEASURE_KERNELS = {
     'bench_demo': BENCH_KERNELS + ('fused_mlp',),
     'bench_imap_e2e': (),
+    'bench_precision': BENCH_KERNELS,
     'bench_fused_eval': ('gather_rows', 'fused_mlp'),
     'profile_steps': BENCH_KERNELS,
     'profile_components': BENCH_KERNELS,
@@ -3168,6 +3345,11 @@ def _measure_faults(name: str, row: dict, card: str) -> list:
                                  and r['peak_mem_gb'] > 0),
         'bench_imap_e2e': lambda r: (r['frames_tracked'] == 6
                                      and r['peak_mem_gb'] > 0),
+        'bench_precision': lambda r: (
+            set(r['imap']) == set(r['orbit']) == {
+                'float32', 'BF16_BF16_F32_X3', 'bfloat16'}
+            and min(v['iters_per_s'] for v in r['imap'].values()) > 0
+            and r['orbit_frames'] == 4 and r['peak_mem_gb'] > 0),
         'bench_fused_eval': lambda r: (r['agree'] and r['resolution'] == 256
                                        and r['peak_mem_gb'] > 0),
         'ablate_track_step': lambda r: (r['full_matches_production']
@@ -3186,7 +3368,7 @@ def _measure_faults(name: str, row: dict, card: str) -> list:
 
 
 def start_measure() -> dict:
-    """Start the three processes of the measure phase (MEASURE_RUNS, and
+    """Start the four processes of the measure phase (MEASURE_RUNS, and
     MEASURE_SHORT in one process); each writes to files of its own, so
     none waits on a full pipe.  `finish_measure` collects them."""
     tmp = tempfile.TemporaryDirectory(prefix='measure_')
@@ -3434,6 +3616,7 @@ def main(argv=None) -> int:
         kern = phase_kernels()
         mlp = phase_fused_mlp(ptxas['nice_slam_tpu_torch/csrc/fused_mlp.cu'])
         phase_model_parity()
+        phase_precision()
         lap('kernels')
         phase_formats()
         lap('formats')

@@ -14,6 +14,11 @@
   * `mlp_dispatch`: `MLP.forward`, or with `fused=True` the fused CUDA
     kernel of ops/fused_mlp.py (Fourier embedding with grid features only;
     other configurations, iMAP's among them, take `MLP.forward`).
+  * `DecoderConfig.mm_precision` (`model.decoder_matmul_precision`): every
+    product of `MLP` and `MLP_no_xyz`, the Fourier embedding's `p @ B` and
+    the backward's included, at that precision (models/precision.py).  The
+    fused kernel keeps its own (3xTF32, FP32 accuracy) whatever the key
+    says, as the JAX package calls its Pallas kernel outside the scope.
 
 Module and parameter names follow the reference's torch decoders
 (`pts_linears.i`, `fc_c.i`, `output_linear`, `embedder._B`), so a pretrained
@@ -32,6 +37,7 @@ from torch.nn import functional as F
 
 from nice_slam_tpu_torch.models.embeddings import (
     GaussianFourierFeatures, nerf_embed, nerf_embed_dim)
+from nice_slam_tpu_torch.models.precision import linear
 from nice_slam_tpu_torch.ops.fused_mlp import fused_mlp
 from nice_slam_tpu_torch.ops.trilinear import sample_grid_feature
 
@@ -48,6 +54,9 @@ class DecoderConfig(NamedTuple):
     # the iMAP* decoder
     imap_hidden: int = 256
     imap_blocks: int = 4
+    # the decoder stack's matmul precision (models/precision.py); None is
+    # true float32
+    mm_precision: str | None = None
 
     def embed_dim(self, color: bool) -> int:
         if self.pos_embedding_method == 'fourier':
@@ -107,7 +116,7 @@ class MLP(nn.Module):
     def embed(self, p: torch.Tensor) -> torch.Tensor:
         method = self.cfg.pos_embedding_method
         if method == 'fourier':
-            return self.embedder(p)
+            return self.embedder(p, self.cfg.mm_precision)
         if method == 'same':
             return p
         if method == 'nerf':
@@ -119,6 +128,7 @@ class MLP(nn.Module):
                 ) -> torch.Tensor:
         """p [N, 3] world points, c_feat [N, c_dim] (None for c_dim 0) ->
         [N, 4] if color else [N]."""
+        prec = self.cfg.mm_precision
         embedded = self.embed(p)
         fc_all = None
         if c_feat is not None:
@@ -126,16 +136,17 @@ class MLP(nn.Module):
             # injections fc_c[i](c) are one wide matmul, sliced per block
             w_all = torch.cat([l.weight for l in self.fc_c], dim=0)
             b_all = torch.cat([l.bias for l in self.fc_c])
-            fc_all = F.linear(c_feat, w_all, b_all)
+            fc_all = linear(c_feat, w_all, b_all, prec)
             hidden = self.fc_c[0].out_features
         h = embedded
         for i, layer in enumerate(self.pts_linears):
-            h = F.relu(layer(h))
+            h = F.relu(linear(h, layer.weight, layer.bias, prec))
             if fc_all is not None:
                 h = h + fc_all[:, i * hidden:(i + 1) * hidden]
             if i in self.skips:
                 h = torch.cat([embedded, h], dim=-1)
-        out = self.output_linear(h)
+        out = linear(h, self.output_linear.weight, self.output_linear.bias,
+                     prec)
         return out if self.color else out[..., 0]
 
 
@@ -145,6 +156,7 @@ class MLP_no_xyz(nn.Module):
     def __init__(self, cfg: DecoderConfig, *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
+        self.cfg = cfg
         self.skips = tuple(cfg.skips)
         hidden = cfg.hidden_size
         layers, in_dim = [], hidden  # the first layer takes c (c_dim == hidden)
@@ -156,12 +168,14 @@ class MLP_no_xyz(nn.Module):
         self.output_linear = _linear(in_dim, 1, 1.0, generator, device)
 
     def forward(self, c_feat: torch.Tensor) -> torch.Tensor:
+        prec = self.cfg.mm_precision
         h = c_feat
         for i, layer in enumerate(self.pts_linears):
-            h = F.relu(layer(h))
+            h = F.relu(linear(h, layer.weight, layer.bias, prec))
             if i in self.skips:
                 h = torch.cat([c_feat, h], dim=-1)
-        return self.output_linear(h)[..., 0]
+        return linear(h, self.output_linear.weight, self.output_linear.bias,
+                      prec)[..., 0]
 
 
 def init_nice_decoders(cfg: DecoderConfig, *, generator: torch.Generator,
@@ -203,7 +217,8 @@ def mlp_dispatch(mlp: MLP, p: torch.Tensor, c_feat: torch.Tensor | None,
     """`mlp(p, c_feat)`, or the fused kernel when asked for and applicable
     (the Fourier-embedding MLP with grid features; the kernel takes
     contiguous inputs, so the feature slices are made contiguous).  With no
-    grid features (iMAP*) it is always `mlp(p, None)`."""
+    grid features (iMAP*) it is always `mlp(p, None)`.  The kernel ignores
+    `mm_precision`, as the JAX package's Pallas kernel does."""
     if (fused and mlp.cfg.pos_embedding_method == 'fourier'
             and c_feat is not None):
         return fused_mlp(mlp, p.contiguous(), c_feat.contiguous())

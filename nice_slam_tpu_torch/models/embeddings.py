@@ -1,11 +1,14 @@
 """Positional embeddings for the decoder MLPs; port of
-`nice_slam_tpu/models/embeddings.py`."""
+`nice_slam_tpu/models/embeddings.py`.  The Fourier embedding's product
+takes the decoder stack's matmul precision (models/precision.py)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+from nice_slam_tpu_torch.models.precision import mm
 
 
 class GaussianFourierFeatures(nn.Module):
@@ -20,13 +23,16 @@ class GaussianFourierFeatures(nn.Module):
             (in_dim, mapping_size), generator=generator, device=device)
             * scale)
 
-    def forward(self, p: torch.Tensor) -> torch.Tensor:
-        return fourier_embed(self._B, p)
+    def forward(self, p: torch.Tensor, precision: str | None = None
+                ) -> torch.Tensor:
+        return fourier_embed(self._B, p, precision)
 
 
-def fourier_embed(b_matrix: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """sin(p @ B): [N, 3] -> [N, mapping_size]."""
-    return torch.sin(p @ b_matrix)
+def fourier_embed(b_matrix: torch.Tensor, p: torch.Tensor,
+                  precision: str | None = None) -> torch.Tensor:
+    """sin(p @ B): [N, 3] -> [N, mapping_size], the product at
+    `precision`."""
+    return torch.sin(mm(p, b_matrix, precision))
 
 
 def nerf_embed_dim(multires: int) -> int:

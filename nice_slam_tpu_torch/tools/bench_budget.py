@@ -23,9 +23,12 @@ trainable.  After one untimed call of each kind (it builds the kernels):
 tracking the best of 3 frames, mapping the best of 3 calls, each from a
 fresh copy of the state (the port's mapper updates it in place).
 
-Left out as TPU machinery: the compile re-roll salt loop and the compile
-cache; NSTPU_MM_PRECISION (the port computes the decoders in float32 only,
-utils/config.py).  TF32 stays off, as in `SlamSystem`.
+NSTPU_MM_PRECISION, when set, is the decoders' matmul precision
+(`DecoderConfig.mm_precision`, models/precision.py: e.g. bfloat16, one
+bfloat16 pass a product on the tensor cores), as in the JAX script and
+its `tum` case (scripts/bench_tum.py); the rest of the step stays true
+float32.  Left out as TPU machinery: the compile re-roll salt loop and the
+compile cache.  TF32 stays off, as in `SlamSystem`.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 
 from nice_slam_tpu_torch import bench
 from nice_slam_tpu_torch.engine.slam import resolve_device
+from nice_slam_tpu_torch.models import precision
 from nice_slam_tpu_torch.utils import config as cfgutil
 from nice_slam_tpu_torch.utils import measure
 
@@ -75,6 +79,17 @@ def budget_line(scene: str, cfg: dict) -> dict:
                     int(cfg['mapping']['every_frame'])]}
 
 
+def decoder_config(cfg: dict):
+    """The config's decoders, their products at NSTPU_MM_PRECISION when
+    it is set (a name of models/precision.py; ValueError for another)."""
+    dcfg = cfgutil.decoder_config_from_cfg(cfg)
+    mm_precision = os.environ.get('NSTPU_MM_PRECISION')
+    if mm_precision:
+        precision.passes(mm_precision)
+        dcfg = dcfg._replace(mm_precision=mm_precision)
+    return dcfg
+
+
 def main(name: str = 'scannet', device=None) -> dict:
     """Run the budget bench of scene `name` (or a config path); returns the
     stdout line's object."""
@@ -86,7 +101,7 @@ def main(name: str = 'scannet', device=None) -> dict:
     every = int(cfg['mapping']['every_frame'])
     wl = bench.make_workload(
         dev, gcfg=cfgutil.grid_config_from_cfg(cfg),
-        dcfg=cfgutil.decoder_config_from_cfg(cfg),
+        dcfg=decoder_config(cfg),
         rcfg=cfgutil.render_config_from_cfg(cfg),
         intr=cfgutil.intrinsics_from_cfg(cfg),
         tcfg=cfgutil.tracker_config_from_cfg(cfg), mcfg=mcfg, cam7=CAM7)

@@ -20,11 +20,10 @@ RMSE divided by `scale` (metres of the unscaled scene).
 
 The config is the test suite's small synthetic scene
 (`tools/_small_config.small_config`) with the JAX script's overrides
-(`imap_config`) but one: the JAX script also sets
-`model.decoder_matmul_precision: bfloat16`, a TPU MXU setting that the
-port only warns about and computes in float32 (utils/config.py), so the
-port's config leaves the key out.  The kernels are built before the clock
-starts.
+(`imap_config`), `model.decoder_matmul_precision: bfloat16` among them:
+the decoder's products run one bfloat16 pass each on the tensor cores,
+summed in float32 (models/precision.py).  The kernels are built before
+the clock starts.
 
 Prints one JSON line with the JAX script's keys (`value`, the scaled ATE
 RMSE, the raw mean per-frame error, `PhaseTimers.summary()`) plus the card
@@ -52,8 +51,8 @@ from nice_slam_tpu_torch.utils.config import deep_update
 
 def imap_config(n: int = 40, scale: float = 0.4, *, h: int = 240,
                 w: int = 320, update: dict | None = None) -> dict:
-    """The JAX script's config (bench_imap_e2e.py:35-47) without its
-    bfloat16 key, at h x w, then `update` laid over it."""
+    """The JAX script's config (bench_imap_e2e.py:35-47) at h x w, then
+    `update` laid over it."""
     cfg = small_config(n_frames=n, nice=False, coarse=False, h=h, w=w)
     cfg['synthetic']['n_frames'] = n
     cfg['rendering'].update(N_samples=32, N_surface=0, N_importance=12)
@@ -66,6 +65,7 @@ def imap_config(n: int = 40, scale: float = 0.4, *, h: int = 240,
                           mapping_window_size=5,
                           keyframe_selection_method='global',
                           w_color_loss=0.05, imap_decoders_lr=0.0002)
+    cfg['model']['decoder_matmul_precision'] = 'bfloat16'
     cfg['debug'] = {}
     deep_update(cfg, update or {})
     return cfg

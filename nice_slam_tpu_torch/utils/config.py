@@ -8,8 +8,9 @@ package's config tree loads unchanged.
 
 `HONOURED` and `UNPORTED_OPTIONS` account for every key the JAX package's
 SlamSystem and config readers read; `check_options` (called first by
-SlamSystem) warns about the unported ones, which are TPU settings only, so
-no option of a config is ignored without a word.
+SlamSystem) warns about the unported ones (the session-wide matmul
+precision and the TPU compile re-roll), so no option of a config is ignored
+without a word.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from nice_slam_tpu_torch.core.cameras import Intrinsics
 from nice_slam_tpu_torch.engine.mapper import MapperConfig
 from nice_slam_tpu_torch.engine.tracker import TrackerConfig
 from nice_slam_tpu_torch.mesh.mesher import MesherConfig
+from nice_slam_tpu_torch.models import precision
 from nice_slam_tpu_torch.models.decoders import DecoderConfig
 from nice_slam_tpu_torch.models.grids import GridConfig, round_bound
 from nice_slam_tpu_torch.render.renderer import RenderConfig
@@ -39,7 +41,7 @@ HONOURED = frozenset({
     'grid_len.bound_divisible', 'grid_len.coarse', 'grid_len.middle',
     'grid_len.fine', 'grid_len.color',
     'model.c_dim', 'model.coarse_bound_enlarge',
-    'model.pos_embedding_method',
+    'model.pos_embedding_method', 'model.decoder_matmul_precision',
     'rendering.N_samples', 'rendering.N_surface', 'rendering.N_importance',
     'rendering.lindisp', 'rendering.perturb', 'rendering.grad_z',
     'occupancy', 'coarse', 'scale', 'verbose', 'dataset',
@@ -85,17 +87,17 @@ _ABSENT = object()   # the key is not in the config
 _AUTOTUNE = ("the JAX package's TPU compile re-roll is not ported (the "
              "port's 'Semantics, not TPU workarounds' rule); it has no "
              'effect here')
-_F32 = ('a TPU MXU matmul precision: the port keeps true float32 matmuls '
-        '(TF32 off, its "Precision" rule)')
+_F32 = ('the session-wide matmul precision (pose math, sampling, losses '
+        'and decoders alike) is not ported: the port keeps every product '
+        'true float32 (TF32 off), the JAX package\'s default; '
+        'model.decoder_matmul_precision sets the decoder stack\'s alone')
 
-# The TPU settings, which the port does not act on: key -> (the JAX
-# package's value when the key is absent, the values that change nothing
-# there, what the key drives).  When a config gives a key (or its absence
-# gives it) any other value, SlamSystem warns once; the run is the same.
+# The options the port does not act on: key -> (the JAX package's value
+# when the key is absent, the values that change nothing there, what the
+# key drives).  When a config gives a key (or its absence gives it) any
+# other value, SlamSystem warns once; the run is the same.
 UNPORTED_OPTIONS = {
     'matmul_precision': ('float32', ('float32', 'highest'), _F32),
-    'model.decoder_matmul_precision': (_ABSENT, (None, 'float32', 'highest'),
-                                       _F32),
     'tracking.autotune_ms': (_ABSENT, (), _AUTOTUNE),
     'tracking.autotune_candidates': (_ABSENT, (), _AUTOTUNE),
     'mapping.autotune_ms_per_iter': (_ABSENT, (), _AUTOTUNE),
@@ -190,10 +192,15 @@ def grid_config_from_cfg(cfg: dict) -> GridConfig:
 
 
 def decoder_config_from_cfg(cfg: dict) -> DecoderConfig:
+    """The decoders' config; ValueError for a
+    `model.decoder_matmul_precision` that names no precision."""
+    mm_precision = cfg['model'].get('decoder_matmul_precision')
+    precision.passes(mm_precision)
     return DecoderConfig(
         c_dim=int(cfg['model']['c_dim']),
         pos_embedding_method=cfg['model']['pos_embedding_method'],
         coarse=bool(cfg['coarse']),
+        mm_precision=mm_precision,
     )
 
 

@@ -13,8 +13,9 @@ of `scripts/port_profile_room0.py`.
   launched back to back with one synchronize (pipelined).
 - `busy_share(kernel_spans(prof), wall_us)`: the union of the device's
   kernel intervals in a `torch.profiler` trace over a call's wall time;
-  `busy_share_of(fn, device)` runs `fn` under the profiler and returns
-  that share.
+  `profiled(fn, device)` runs `fn` once under the profiler and returns its
+  wall ms, device ms (that union), busy share and kernel count with the
+  profile; `busy_share_of(fn, device)` returns the share alone.
 - `reset_launch_counts()` / `launch_counts()`: every row kernel's
   `LAUNCHES` (ops/expand.py, ops/gather.py, ops/fused_mlp.py,
   ops/roofline.py).  A wrapper counts a launch only on a CUDA tensor, so on
@@ -117,17 +118,26 @@ def busy_share(spans, wall_us: float) -> tuple[float, int]:
     return busy / wall_us, len(spans)
 
 
+def profiled(fn, device: torch.device):
+    """Run `fn` once under torch.profiler on the card, synchronized
+    before and after: ({'wall_ms', 'device_ms' (the union of its device
+    intervals), 'busy_share', 'kernels'}, the finished profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = wall_s(fn, device)
+    share, n = busy_share(kernel_spans(prof), wall * 1e6)
+    return {'wall_ms': wall * 1e3, 'device_ms': share * wall * 1e3,
+            'busy_share': share, 'kernels': n}, prof
+
+
 def busy_share_of(fn, device: torch.device) -> float | None:
     """Run `fn` once under torch.profiler and return the device's busy
     share of its synchronized wall time; on the CPU, which has no device
     trace, None without running `fn`."""
-    from torch.profiler import ProfilerActivity, profile
     if device.type != 'cuda':
         return None
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall = wall_s(fn, device)
-    return busy_share(kernel_spans(prof), wall * 1e6)[0]
+    return profiled(fn, device)[0]['busy_share']
 
 
 def _counters():

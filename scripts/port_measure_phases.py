@@ -12,7 +12,10 @@ The runs (all by default):
       from scratch at seed 4 (the port's seed 0 draws a model whose
       first-frame map leaves the fine decoder untrained, in the JAX
       package too: ROADMAP section 3);
-  imap_e2e        tools.bench_imap_e2e at 40 frames;
+  imap_e2e        tools.bench_imap_e2e at 40 frames (bfloat16 decoder
+                  products, as the JAX script sets them);
+  precision       tools.bench_precision at the JAX script's depth (60
+                  mapping iterations a precision, an 8-frame orbit);
   fused_eval      tools.bench_fused_eval at 256^3;
   ablate_track, ablate_map, profile_steps, profile_components,
   diagnose_strict
@@ -47,6 +50,7 @@ RUNS = {
     'demo_strict_seed4': [T + 'bench_demo', '500', '--sync=strict',
                           '--seed', '4'],
     'imap_e2e': [T + 'bench_imap_e2e', '40'],
+    'precision': [T + 'bench_precision', '60', '--orbit-frames', '8'],
     'fused_eval': [T + 'bench_fused_eval', '256'],
     'ablate_track': [T + 'ablate_track_step'],
     'ablate_map': [T + 'ablate_map_step'],

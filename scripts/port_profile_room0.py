@@ -1,7 +1,8 @@
 """Where the time goes in the port at room0's full width: a torch.profiler
 trace of one tracked frame and one normal mapping call on the GPU.
 
-    python scripts/port_profile_room0.py [--out build/profile_room0] [--imap]
+    python scripts/port_profile_room0.py [--out build/profile_room0] \
+        [--imap [--precision P]]
 
 configs/Replica/room0.yaml as loaded (pretrained decoders, 680x1200, grid
 shapes, budgets) on the analytic synthetic scene.  Set-up, not profiled:
@@ -22,13 +23,18 @@ writes the key_averages tables under --out.
 configs/imap.yaml (680x1200, 5000 px x 50 tracking iterations, 5000 px x
 300 mapping iterations as 3 outer x 100, hidden 256) on the same scene,
 the first map cut to 60 iterations; profiled are tracking frame 1 and one
-normal mapping call at frame 1, and the line adds each call's FP32-core
-bound: the decoder MLP's multiply-adds for the points the call decodes
-(forward, and the backward's input gradients, plus its weight gradients
-in mapping) over the H100's 67 TFLOP/s FP32 rate (data sheet; TF32 stays
-off).  There is no scatter to record; instead the line adds the wall time
-of the last frame's color refine (5 x 300 iterations on a window of 10),
-tracked and mapped after the profiled calls, outside the profiler.
+normal mapping call at frame 1, each also once more without the
+profiler (`wall_ms_unprofiled`), and the line adds each call's bounds: the
+decoder MLP's multiply-adds for the points the call decodes (forward, and
+the backward's input gradients, plus its weight gradients in mapping) over
+the H100's 67 TFLOP/s FP32 rate (`*_fp32_bound_ms`, TF32 off) and, at the
+decoder precision the run uses (`--precision`, by default imap.yaml's
+bfloat16; models/precision.py), over the rate of its products
+(`*_bound_ms`: FP32 cores for float32, one or three passes at the 989
+TFLOP/s of the bf16 tensor cores; data sheet).  There is no scatter to
+record; instead the line adds the wall time of the last frame's color
+refine (5 x 300 iterations on a window of 10), tracked and mapped after the
+profiled calls, outside the profiler.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 FP32_FLOP_PER_S = 67e12        # H100 SXM FP32 without tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 
 
 def imap_mlp_macs(dcfg) -> int:
@@ -64,11 +71,16 @@ def imap_bounds_ms(slam) -> dict:
     map_pts = mc.pixels * (2 * rc.n_samples + rc.n_importance) \
         * (mc.iters // 3) * 3
     flop = lambda pts, passes: 2.0 * macs * pts * passes
+    from nice_slam_tpu_torch.models.precision import passes
+    n = passes(slam.dcfg.mm_precision)
+    rate = FP32_FLOP_PER_S if n == 0 else BF16_FLOP_PER_S / n
     return {'mlp_macs_per_point': macs,
             'track_frame_fp32_bound_ms': flop(track_pts, 2)
             / FP32_FLOP_PER_S * 1e3,
             'map_call_fp32_bound_ms': flop(map_pts, 3)
-            / FP32_FLOP_PER_S * 1e3}
+            / FP32_FLOP_PER_S * 1e3,
+            'track_frame_bound_ms': flop(track_pts, 2) / rate * 1e3,
+            'map_call_bound_ms': flop(map_pts, 3) / rate * 1e3}
 
 
 def main() -> None:
@@ -76,15 +88,17 @@ def main() -> None:
     ap.add_argument('--out', default='build/profile_room0')
     ap.add_argument('--imap', action='store_true',
                     help='profile iMAP* on room0_imap.yaml')
+    ap.add_argument('--precision', default=None,
+                    help='with --imap: model.decoder_matmul_precision '
+                    "(default imap.yaml's bfloat16)")
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from nice_slam_tpu_torch.engine.slam import SlamSystem
     from nice_slam_tpu_torch.ops import gather as ga
     from nice_slam_tpu_torch.utils.config import load_config
-    from nice_slam_tpu_torch.utils.measure import busy_share, kernel_spans
+    from nice_slam_tpu_torch.utils.measure import card, profiled, wall_s
 
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
@@ -92,6 +106,8 @@ def main() -> None:
     if args.imap:
         cfg = load_config('configs/Replica/room0_imap.yaml',
                           'configs/imap.yaml')
+        if args.precision:
+            cfg['model']['decoder_matmul_precision'] = args.precision
     else:
         cfg = load_config('configs/Replica/room0.yaml',
                           'configs/nice_slam.yaml')
@@ -112,30 +128,27 @@ def main() -> None:
     def map_call():
         slam.map_frame(1, *frame[1:])
 
-    out = {'gpu': torch.cuda.get_device_name(0),
-           'method': 'imap' if args.imap else 'nice'}
+    dev = torch.device('cuda')
+    out = {'gpu': card(dev), 'method': 'imap' if args.imap else 'nice',
+           'decoder_matmul_precision': slam.dcfg.mm_precision}
     if args.imap:
         out.update(imap_bounds_ms(slam))
     for name, fn in (('track_frame', track), ('map_call', map_call)):
         fn()                                   # warm-up
-        torch.cuda.synchronize()
         ga.reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        share, n_kernels = busy_share(kernel_spans(prof), wall * 1e6)
+        stats, prof = profiled(fn, dev)
         avg = prof.key_averages()
         top = sorted((e for e in avg if e.device_time_total > 0),
                      key=lambda e: -e.device_time_total)[:12]
         out[name] = {
-            'wall_ms': wall * 1e3, 'device_busy_share': share,
-            'device_busy_ms': share * wall * 1e3,
-            'kernels': n_kernels, 'row_kernel_launches': dict(ga.LAUNCHES),
+            'wall_ms': stats['wall_ms'],
+            'device_busy_share': stats['busy_share'],
+            'device_busy_ms': stats['device_ms'],
+            'kernels': stats['kernels'],
+            'row_kernel_launches': dict(ga.LAUNCHES),
             'top_device_ms': [[e.key[:60], e.device_time_total / 1e3,
-                               e.count] for e in top]}
+                               e.count] for e in top],
+            'wall_ms_unprofiled': wall_s(fn, dev)[1] * 1e3}
         with open(os.path.join(args.out, f'{name}.txt'), 'w') as f:
             f.write(avg.table(sort_by='device_time_total', row_limit=40))
     if args.imap:

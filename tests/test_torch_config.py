@@ -109,9 +109,11 @@ def test_every_key_the_jax_package_reads_is_accounted_for():
     assert not missing, sorted(missing)
     for key, (_, inert, what) in UNPORTED_OPTIONS.items():
         assert what, key
-    # only the TPU settings stay unported
+    # only the session-wide matmul precision and the TPU compile re-roll
+    # stay unported; the decoder stack's precision is honoured
+    assert 'model.decoder_matmul_precision' in HONOURED
     assert set(UNPORTED_OPTIONS) == {
-        'matmul_precision', 'model.decoder_matmul_precision',
+        'matmul_precision',
         'tracking.autotune_ms', 'tracking.autotune_candidates',
         'mapping.autotune_ms_per_iter', 'mapping.autotune_candidates'}
 
@@ -178,15 +180,19 @@ def test_inert_values_pass_and_warned_keys_warn_once(tmp_path):
             cfg[section].pop(key, None)
     assert check_options(cfg) == []
     cfg['model']['decoder_matmul_precision'] = 'bfloat16'
+    cfg['matmul_precision'] = 'bfloat16'
     cfg['mapping']['autotune_candidates'] = 3
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         slam = SlamSystem(cfg, device='cpu', output=str(tmp_path))
     messages = [str(w.message) for w in caught]
-    for key in ('model.decoder_matmul_precision',
-                'mapping.autotune_candidates'):
+    for key in ('matmul_precision', 'mapping.autotune_candidates'):
         assert sum(m.startswith(key + ':') for m in messages) == 1, messages
-    # the TPU precision is ignored: true float32 matmuls
+    # the decoder stack's precision is honoured, without a warning
+    assert not any(m.startswith('model.decoder_matmul_precision')
+                   for m in messages), messages
+    assert slam.dcfg.mm_precision == 'bfloat16'
+    # the session-wide precision is ignored: true float32 matmuls
     assert torch.get_float32_matmul_precision() == 'highest'
     assert slam.n_img == 2
 

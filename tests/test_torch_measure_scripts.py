@@ -1,14 +1,17 @@
 """The port's last measurement entry points against the JAX scripts they
 port: tools/bench_demo.py, bench_imap_e2e.py, bench_fused_eval.py,
 profile_steps.py, profile_components.py, ablate_track_step.py,
-ablate_map_step.py and diagnose_strict.py (scripts/*.py).
+ablate_map_step.py, diagnose_strict.py and bench_precision.py
+(scripts/*.py).
 
 (a) Configs: each JAX script's `main` runs with the JAX `SlamSystem`
     replaced by a stub that records its config and stops; the port's
-    config function gives the same dictionary (bench_imap_e2e's without
-    its bfloat16 key, which the port computes in float32;
-    diagnose_strict's at `bench_sync_modes.mode_config`, which adds
-    `sync_force_free`).
+    config function gives the same dictionary (bench_imap_e2e's with its
+    bfloat16 decoder products; diagnose_strict's at
+    `bench_sync_modes.mode_config`, which adds `sync_force_free`);
+    bench_precision's orbit config, and the iMAP* call's decoder,
+    renderer, mapper, camera, bound and sizes as the JAX `time_imap`
+    hands them to `make_map_step`, at each of its precisions.
 (b) Output keys: a stub that carries poses and JAX `PhaseTimers` lets the
     JAX script print its JSON; the port's JSON from a tiny CPU run carries
     the same keys plus `device`, `launches` and `peak_mem_gb`.
@@ -23,7 +26,7 @@ ablate_map_step.py and diagnose_strict.py (scripts/*.py).
 (e) profile_steps, profile_components, the two ablations and
     diagnose_strict end to end on the CPU at tiny sizes: every row
     printed, every number finite.
-(f) Importing the eight entry points imports neither JAX nor the JAX
+(f) Importing the nine entry points imports neither JAX nor the JAX
     package.
 About 60 s in one process.
 """
@@ -48,8 +51,8 @@ from nice_slam_tpu_torch.models.convert import (
 from nice_slam_tpu_torch.render import renderer as R
 from nice_slam_tpu_torch.tools import (
     ablate_map_step, ablate_track_step, bench_demo, bench_fused_eval,
-    bench_imap_e2e, bench_sync_modes, diagnose_strict, profile_components,
-    profile_steps)
+    bench_imap_e2e, bench_precision, bench_sync_modes, diagnose_strict,
+    profile_components, profile_steps)
 from tests.test_torch_util import np_of, tree_np
 
 torch.set_num_threads(2)
@@ -59,7 +62,7 @@ CPU = torch.device('cpu')
 REAL_SORT = torch.sort
 ENTRY_POINTS = ('bench_demo', 'bench_imap_e2e', 'bench_fused_eval',
                 'profile_steps', 'profile_components', 'ablate_track_step',
-                'ablate_map_step', 'diagnose_strict')
+                'ablate_map_step', 'diagnose_strict', 'bench_precision')
 # tiny budgets of the end-to-end runs
 TINY = {'mapping': {'iters_first': 10, 'iters': 3, 'pixels': 200},
         'tracking': {'iters': 3, 'pixels': 100},
@@ -79,7 +82,8 @@ class _Stop(Exception):
     pass
 
 
-def _recorded_config(monkeypatch, name: str, *args) -> dict:
+def _recorded_config(monkeypatch, name: str, *args, fn: str = 'main'
+                     ) -> dict:
     import nice_slam_tpu.engine.slam as jslam
     seen = []
 
@@ -88,8 +92,41 @@ def _recorded_config(monkeypatch, name: str, *args) -> dict:
         raise _Stop
     monkeypatch.setattr(jslam, 'SlamSystem', stub)
     with pytest.raises(_Stop):
-        _jax_script(name).main(*args)
+        getattr(_jax_script(name), fn)(*args)
     return seen[0]
+
+
+def _same_fields(port, jax_cfg) -> None:
+    """Two NamedTuple configs agree on every field they share."""
+    a, b = port._asdict(), jax_cfg._asdict()
+    assert set(a) & set(b)
+    for k in set(a) & set(b):
+        assert a[k] == b[k], k
+
+
+def _precision_setup_is_the_jax_scripts(monkeypatch, mm_precision) -> None:
+    """bench_precision's iMAP* call: the JAX script's `time_imap` runs
+    until it builds its step, whose arguments are recorded."""
+    import nice_slam_tpu.engine.mapper as jm
+    seen = {}
+
+    def stub(**kw):
+        seen.update(kw)
+        raise _Stop
+    monkeypatch.setattr(jm, 'make_map_step', stub)
+    with pytest.raises(_Stop):
+        _jax_script('bench_precision').time_imap(60, mm_precision)
+    got = bench_precision.imap_setup(60, mm_precision, CPU)
+    assert seen['model'].kind == got['model'].kind == 'imap'
+    for key in ('dcfg', 'rcfg', 'mcfg'):
+        want = seen['model'].decoder if key == 'dcfg' else seen[key[0] + 'cfg']
+        _same_fields(got[key], want)
+    assert got['dcfg'].mm_precision == mm_precision
+    assert tuple(got['intr']) == tuple(seen['intr'])
+    np.testing.assert_allclose(np_of(got['model'].bound),
+                               np.asarray(seen['model'].bound), rtol=1e-6)
+    assert (got['n_frames'], got['pixels'] // got['n_frames'], 60) == (
+        seen['n_frames'], seen['pix_per_frame'], seen['n_iters'])
 
 
 @pytest.mark.parametrize('name,args', [
@@ -100,9 +137,19 @@ def _recorded_config(monkeypatch, name: str, *args) -> dict:
     ('bench_imap_e2e', ()),
     ('bench_imap_e2e', (6, 1.0)),
     ('diagnose_strict', ()),
+    ('bench_precision', (None,)),
+    ('bench_precision', ('BF16_BF16_F32_X3',)),
+    ('bench_precision', ('bfloat16',)),
 ])
 def test_config_is_the_jax_scripts(name, args, monkeypatch):
     import jax
+    if name == 'bench_precision':
+        _precision_setup_is_the_jax_scripts(monkeypatch, *args)
+        want = _recorded_config(monkeypatch, name, *args, fn='orbit_ate')
+        got = bench_precision.orbit_config(*args)
+        assert json.dumps(got, sort_keys=True) == json.dumps(
+            want, sort_keys=True)
+        return
     try:
         want = _recorded_config(monkeypatch, name, *args)
     finally:
@@ -110,7 +157,7 @@ def test_config_is_the_jax_scripts(name, args, monkeypatch):
     if name == 'bench_demo':
         got = bench_demo.demo_config(*args)
     elif name == 'bench_imap_e2e':
-        assert want['model'].pop('decoder_matmul_precision') == 'bfloat16'
+        assert want['model']['decoder_matmul_precision'] == 'bfloat16'
         got = bench_imap_e2e.imap_config(*args)
     else:
         assert want['sync_method'] == 'strict'
