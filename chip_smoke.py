@@ -344,6 +344,28 @@ DISK_BOUND_COMPLETION_RATIO_PCT = 0.67 * 19.438
 # to tests/test_dataset_fixtures.py's bars (_check_images): mean |color -
 # source| < 0.08 / 4 through JPEG, < 0.01 / 4 through PNG; depth within 2
 # quantization steps + 1e-4; poses within 1e-6
+# synthetic.yaml under the session-wide `matmul_precision`
+# (scripts/port_precision_phases.py's session_accuracy, 40 frames and the
+# 128^3 mesh): 1.5x / 0.67x the worst of JAX seeds 0-2 run under the TPU's
+# rule on the CPU (JAX_PLATFORMS=cpu python
+# scripts/port_jax_accuracy_bound.py --recon --session-precision NAME
+# --seeds S, tests/tpu_matmul_rule.py; every seed finite): name -> (ATE
+# RMSE m, largest frame error m, accuracy cm, completion cm, completion
+# ratio %), the worst seed's values
+SESSION_WORST = {
+    'bfloat16': (0.027259059149963755, 0.08827779442071915,
+                 7.561001539396813, 49.997463300807794, 20.039),
+    'tensorfloat32': (0.02497083325387917, 0.09884578734636307,
+                      8.109952012436219, 48.687013847093205,
+                      18.313499999999998),
+}
+# chip_smoke.py's session_precision phase: synthetic.yaml cut to this many
+# frames, its first map to this many iterations and no final color refine
+# (the script's time), under each session precision, with its final 128^3
+# mesh
+SESSION_FRAMES = 3
+SESSION_ITERS_FIRST = 100
+
 FORMAT_KINDS = ('replica', 'scannet', 'tumrgbd', 'cofusion', 'azure')
 FORMAT_N, FORMAT_H, FORMAT_W = 6, 60, 80
 FORMAT_SCANNET_NAN_FRAME = 3
@@ -384,6 +406,14 @@ POINTS_BATCH = 262144          # meshing.points_batch: one lattice chunk
 RAGGED_N = [1, 15, 16, 17, 31, 63, 64, 65, 1023, 1025, 4097,
             POINTS_BATCH + 13]
 MLP_TOL = 1e-4                 # x max(1, max|plain|)
+# the bf16 modes against their plain version at the same precision (a
+# float32 sum on the other side of a bf16 rounding boundary moves the next
+# product's input by one bf16 ulp; tests/test_torch_fused_mlp.py's
+# bf16_held, measured on its CPU emulation): at every N the largest
+# difference at most BF16_MAX x max(1, max|plain|); at N >= 4,097 also the
+# median at most 1e-5 and at most 2% beyond 1e-4 of max|plain|
+BF16_MODES = {'bfloat16': 1, 'tensorfloat32': 3}
+BF16_MAX = 2e-2
 # at the three decoders' 262,144-point chunks also the kernel's precision
 # bound, ops/fused_mlp.PRECISION_TOL x max(1, max|plain|)
 SCATTER_TOL = 1e-5             # x max(1, max|index_add_|)
@@ -708,6 +738,102 @@ def phase_fused_mlp(ptxas: list) -> dict:
     return {'err': err, 'times': times}
 
 
+def mlp_bounds_bf16(n: int, c_dim: int, color: bool, macs: int,
+                    packed_floats: int, n_passes: int) -> dict:
+    """The least time of one call of a bf16 mode at n points: the dense,
+    fc_c and head products at `n_passes` bf16 passes on the tensor cores
+    and the embedding argument's `n_passes` // 3 + 1 fmaf chains on the
+    FP32 cores, against the bytes (p, c, out, packed weights once each)."""
+    out_w = 4 if color else 1
+    nbytes = 4 * (n * (3 + c_dim + out_w) + packed_floats)
+    chains = 1 if n_passes == 1 else 3
+    ops_ms = (n_passes * 2 * (macs - EMBED_MACS) * n / BF16_FLOP_PER_S
+              + chains * 2 * EMBED_MACS * n / FP32_FLOP_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {'bytes': nbytes, 'bf16_tensor_core_bound_ms': ops_ms,
+            'bytes_bound_ms': bytes_ms, 'bound_ms': max(ops_ms, bytes_ms),
+            'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes'}
+
+
+def bf16_share(got, want) -> dict:
+    """The bf16 modes' differences from their plain version, relative to
+    the largest plain output (BF16_MAX's note)."""
+    d = (got.double() - want.double()).abs()
+    top = float(want.abs().max())
+    return {'max_abs_err': float(d.max()),
+            'max_rel': float(d.max()) / max(1.0, top),
+            'median_rel': float(d.median()) / top,
+            'beyond_1e-4': float((d > 1e-4 * top).double().mean())}
+
+
+def phase_fused_mlp_bf16() -> dict:
+    """The fused MLP's bf16 modes (one and three passes) against the
+    plain version at the same precision (`fused_mlp_plain(precision=)`,
+    whose products are cuBLAS bf16 calls) at ragged N, the tile edges and
+    one lattice chunk of each decoder, on points over room0's bound; times
+    and the bf16 bound at the chunk."""
+    import torch
+    from nice_slam_tpu_torch.models.decoders import (
+        DecoderConfig, init_nice_decoders)
+    from nice_slam_tpu_torch.ops import fused_mlp as fm
+    decs = init_nice_decoders(DecoderConfig(),
+                              generator=torch.Generator().manual_seed(3),
+                              device='cpu').to('cuda')
+    mlps = {**{k: decs[k] for k in MLPS}, 'fine4': fine4_mlp()}
+    res = {}
+    for prec, n_passes in BF16_MODES.items():
+        gen = torch.Generator(device='cuda').manual_seed(5)
+        err, times, configs, worst = 0.0, {}, {}, {}
+        for name, mlp in mlps.items():
+            c_dim, color = mlp.fc_c[0].in_features, mlp.color
+            params = [w.detach() for w in fm.mlp_params(mlp)]
+            configs[name] = fm.kernel_config(c_dim, 4 if color else 1,
+                                             n_passes)
+            for n in RAGGED_N + [POINTS_BATCH]:
+                p, c = mlp_inputs(n, c_dim, gen)
+                got = fm.fused_mlp_forward(p, c, params, color=color,
+                                           precision=prec)
+                want = fm.fused_mlp_plain(p, c, params, color=color,
+                                          precision=prec)
+                share = bf16_share(got, want)
+                ok = got.shape == want.shape and share['max_rel'] <= BF16_MAX
+                if n >= 4097:
+                    ok = ok and (share['median_rel'] <= 1e-5
+                                 and share['beyond_1e-4'] <= 0.02)
+                if not ok:
+                    raise AssertionError(f'fused_mlp {prec} off its plain '
+                                         f'version for {name} at N={n}: '
+                                         f'{share}')
+                err = max(err, share['max_abs_err'])
+                if n >= 4097:
+                    worst[name] = {k: max(worst.get(name, {}).get(k, 0.0), v)
+                                   for k, v in share.items()}
+                if n == POINTS_BATCH and name in MLPS:
+                    times[name] = {
+                        'n': n, 'c_dim': c_dim, 'out': 4 if color else 1,
+                        'macs_per_point': MLPS[name][2],
+                        'ms': cuda_ms(lambda: fm.fused_mlp_forward(
+                            p, c, params, color=color, precision=prec)),
+                        'plain_ms': cuda_ms(lambda: fm.fused_mlp_plain(
+                            p, c, params, color=color, precision=prec)),
+                        **share,
+                        **mlp_bounds_bf16(n, c_dim, color, MLPS[name][2],
+                                          configs[name]['pack_floats'],
+                                          n_passes)}
+                    row = times[name]
+                    row['share_of_bound'] = row['bound_ms'] / row['ms']
+        res[prec] = {'mode': fm.MODES[n_passes], 'passes': n_passes,
+                     'max_abs_err': err, 'main_shapes': times,
+                     'worst_share_at_4097_up': worst,
+                     'kernel_config': configs}
+    emit({'phase': 'kernels_fused_mlp_bf16',
+          'tolerance': f'max <= {BF16_MAX} x max(1, max|plain|); at N >= '
+                       '4097 median <= 1e-5 and <= 2% beyond 1e-4 of '
+                       'max|plain|',
+          'ragged_n': RAGGED_N, **res})
+    return res
+
+
 def load_parent_mlp(directory: str):
     """The parent tree's fused-MLP wrapper (`fused_mlp.py`) as a module of
     its own, bound to the parent's `fused_mlp.cu` beside it and built into
@@ -746,15 +872,21 @@ def phase_mlp_ab(directory: str) -> dict:
         want = fm.fused_mlp_plain(p, c, params, color=color)
         tol = MLP_TOL * max(1.0, float(want.abs().max()))
         runs = {'old': old.fused_mlp_forward, 'new': fm.fused_mlp_forward}
+        outs = {}
         for tree, fn in runs.items():
-            e = float((fn(p, c, params, color=color) - want).abs().max())
+            outs[tree] = fn(p, c, params, color=color)
+            e = float((outs[tree] - want).abs().max())
             if not e <= tol:
                 raise AssertionError(f'{tree} fused_mlp off by {e} for '
                                      f'{name}')
+        # the float32 names' mode is the parent's 3xTF32 kernel, bit for bit
+        if not torch.equal(outs['old'], outs['new']):
+            raise AssertionError(f'the 3xTF32 mode differs from the '
+                                 f"parent's kernel for {name}")
         order = ['old', 'new', 'new', 'old']
         ms = [cuda_ms(lambda: runs[tree](p, c, params, color=color))
               for tree in order]
-        rows[name] = {'order': order, 'ms': ms,
+        rows[name] = {'order': order, 'ms': ms, 'bit_equal': True,
                       'old_ms': statistics.mean(ms[0::3]),
                       'new_ms': statistics.mean(ms[1:3])}
         rows[name]['speedup'] = rows[name]['old_ms'] / rows[name]['new_ms']
@@ -1354,7 +1486,12 @@ def run_slam(cfg: dict, output: str, mesh: bool = True, nice: bool = True,
         'sync_method': slam.sync_method, 'refreshes': dict(slam.refreshes),
         'launches': launches,
     }
-    if nice and min(launches.values()) == 0:
+    # the path's kernels: the row kernels, and in meshes the fused MLP's
+    # mode for the decoders' precision
+    want = [*ex.LAUNCHES, *ga.LAUNCHES]
+    if mesh:
+        want.append(fm.MODES[fm.mode_of(slam.dcfg.mm_precision)])
+    if nice and not all(launches[k] > 0 for k in want):
         raise AssertionError(f'kernels not launched: {launches}')
     if not nice and max(launches.values()) != 0:
         raise AssertionError(f'the iMAP* path launched NICE kernels: '
@@ -1449,6 +1586,93 @@ def phase_accuracy():
                                  'bound')
         check_restore(cfg, slam, out)
     return slam.estimate_c2w.copy()
+
+
+def session_cfg(precision: str, short: bool = False) -> dict:
+    """synthetic.yaml under the session-wide `matmul_precision`
+    `precision` (no decoder key: the decoders take it too); `short`: cut
+    to SESSION_FRAMES frames, a first map of SESSION_ITERS_FIRST
+    iterations and no color refine."""
+    from nice_slam_tpu_torch.utils.config import load_config
+    cfg = load_config('configs/Synthetic/synthetic.yaml',
+                      'configs/nice_slam.yaml')
+    cfg['verbose'] = False
+    cfg['matmul_precision'] = precision
+    if short:
+        cfg['synthetic']['n_frames'] = SESSION_FRAMES
+        cfg['mapping'].update(iters_first=SESSION_ITERS_FIRST,
+                              color_refine=False)
+    return cfg
+
+
+def _session_run(precision: str, short: bool, out: str):
+    """One run of session_cfg; checks that the session and decoder
+    precision are the config's and that the meshes went through the
+    kernel's mode for it."""
+    from nice_slam_tpu_torch.ops import fused_mlp as fm
+    cfg = session_cfg(precision, short)
+    res, slam = run_slam(cfg, out)
+    used = (slam.model.matmul_precision, slam.dcfg.mm_precision)
+    if used != (precision, precision):
+        raise AssertionError(f'the run took (session, decoders) {used}')
+    mode = fm.MODES[fm.mode_of(precision)]
+    others = [k for k in fm.LAUNCHES if k != mode]
+    if not (res['launches'][mode] > 0
+            and all(res['launches'][k] == 0 for k in others)):
+        raise AssertionError(f'{precision}: the meshes did not take the '
+                             f'{mode} mode alone: {res["launches"]}')
+    res['mesh_vertices'] = mesh_vertices(os.path.join(out, 'mesh',
+                                                      'final_mesh.ply'))
+    res.update(matmul_precision=precision, mode=mode)
+    return res, slam, cfg
+
+
+def phase_session_precision() -> dict:
+    """synthetic.yaml cut short (session_cfg) under `matmul_precision`
+    bfloat16, then tensorfloat32 (three bf16 passes, not TF32), each with
+    its final 128^3 mesh through the fused kernel's bf16 mode: the poses
+    finite, and the mode's launches > 0 (the other modes' 0).  Returns
+    each run's result, its launches among them."""
+    out_rows = {}
+    for prec in BF16_MODES:
+        with tempfile.TemporaryDirectory() as out:
+            res, _, _ = _session_run(prec, True, out)
+        res['phase'] = 'session_precision'
+        emit(res)
+        out_rows[prec] = res
+    return out_rows
+
+
+def phase_session_accuracy(precision: str) -> None:
+    """synthetic.yaml as shipped (40 frames, 128^3 final mesh) under
+    `matmul_precision` `precision`, held to 1.5x / 0.67x the worst JAX seed
+    under the TPU's rule (SESSION_WORST); scripts/port_precision_phases.py
+    runs it."""
+    from nice_slam_tpu_torch.eval.recon import calc_3d_metric
+    from nice_slam_tpu_torch.io.datasets import synthetic_gt_mesh
+    from nice_slam_tpu_torch.mesh.mesher import load_ply
+    worst = SESSION_WORST[precision]
+    bound = (1.5 * worst[0], 1.5 * worst[1], 1.5 * worst[2],
+             1.5 * worst[3], 0.67 * worst[4])
+    with tempfile.TemporaryDirectory() as out:
+        res, slam, cfg = _session_run(precision, False, out)
+        rec_v, rec_t = load_ply(os.path.join(out, 'mesh', 'final_mesh.ply'))
+        gt_v, gt_t = synthetic_gt_mesh(cfg['synthetic']['box'])
+        res['recon'] = calc_3d_metric(rec_v, rec_t, gt_v, gt_t, align=False)
+    rec = res['recon']
+    res.update(phase='session_accuracy',
+               config='configs/Synthetic/synthetic.yaml',
+               bound_ate_rmse_m=bound[0], bound_max_frame_err_m=bound[1],
+               bound_accuracy_cm=bound[2], bound_completion_cm=bound[3],
+               bound_completion_ratio_pct=bound[4])
+    emit(res)
+    if not (res['ate_rmse_m'] <= bound[0]
+            and res['max_frame_err_m'] <= bound[1]
+            and rec['accuracy_cm'] <= bound[2]
+            and rec['completion_cm'] <= bound[3]
+            and rec['completion_ratio_%'] >= bound[4]):
+        raise AssertionError(f'synthetic under matmul_precision '
+                             f'{precision} outside the JAX bound')
 
 
 def expected_mlp_launches(lattice_points: int, vertex_counts) -> int:
@@ -3175,8 +3399,9 @@ BENCH_RUNS = (
     ('bench', ['nice_slam_tpu_torch.bench']),
     *((f'bench_budget {s}', ['nice_slam_tpu_torch.tools.bench_budget', s])
       for s in ('replica', 'scannet', 'tum', 'apartment')),
-    # 30 mapping iterations a call (its default 100: the script's time)
-    ('bench_imap', ['nice_slam_tpu_torch.tools.bench_imap', '30']),
+    # 10 mapping iterations a call (its default 100: the script's time;
+    # 30 until the session_precision phase took its seconds)
+    ('bench_imap', ['nice_slam_tpu_torch.tools.bench_imap', '10']),
     ('bench_sync_modes', ['nice_slam_tpu_torch.tools.bench_sync_modes', '5',
                           'strict', 'loose', 'free']))
 # the figures that must be above 0 (every number must be finite)
@@ -3189,6 +3414,13 @@ BENCH_POSITIVE = ('value', 'vs_baseline', 'tracking_only_fps',
 BENCH_KERNELS = ('expand_corners', 'fold_corners', 'gather_rows',
                  'scatter_add_rows')
 BENCH_TIMEOUT_S = 300
+# the bench runs two at a time, the longest first (one after another on
+# the H100 machine, PERF.md section 6: sync modes 58.8 s, bench 37.0, tum
+# 30.2, scannet 21.5, bench_imap 19.8, apartment 18.7, replica 16.8)
+BENCH_LANES = 2
+BENCH_ORDER = ('bench_budget replica', 'bench_budget apartment',
+               'bench_imap', 'bench_budget scannet', 'bench_budget tum',
+               'bench', 'bench_sync_modes')
 
 
 def _bench_run(module_args: list) -> tuple:
@@ -3233,18 +3465,25 @@ def _bench_faults(name: str, row: dict, card: str) -> list:
 def phase_bench() -> None:
     """The port's measurement entry points as a user runs them: bench.py;
     tools/bench_budget.py for replica, scannet, tum and apartment;
-    tools/bench_imap.py 30; tools/bench_sync_modes.py 5 strict
-    loose free.  Each result line printed; every number finite, the
-    figures of BENCH_POSITIVE above 0, `device` this H100, the four row
-    kernels of the NICE path launched (none on the iMAP* path), and the
-    free row run as free with no fallback warning."""
+    tools/bench_imap.py 10; tools/bench_sync_modes.py 5 strict
+    loose free.  Two processes at a time, the longest first (the
+    script's time: 203 s one after another, PERF.md section 6), so their
+    times share the card and the host and are not measurements (run the
+    entry points alone for those).  Each result line printed; every
+    number finite, the figures of BENCH_POSITIVE above 0, `device` this
+    H100, the four row kernels of the NICE path launched (none on the
+    iMAP* path), and the free row run as free with no fallback warning."""
     import torch
     from nice_slam_tpu_torch.utils.measure import card
     name_limit = card(torch.device('cuda', 0))
     torch.cuda.empty_cache()     # the card's memory to the entry points
     bad, seconds = [], {}
-    for name, module_args in BENCH_RUNS:
-        rows, text, err, sec = _bench_run(module_args)
+    with concurrent.futures.ThreadPoolExecutor(BENCH_LANES) as pool:
+        runs = {name: pool.submit(_bench_run, args) for name, args in
+                sorted(BENCH_RUNS, key=lambda r: -BENCH_ORDER.index(r[0]))}
+        results = {name: fut.result() for name, fut in runs.items()}
+    for name, _ in BENCH_RUNS:
+        rows, text, err, sec = results[name]
         seconds[name] = sec
         for row in rows:
             emit({'phase': 'bench', 'run': name, **row})
@@ -3446,11 +3685,13 @@ def _entry(row, name, source, replaces, launches, err, ms, plain_ms,
 
 
 def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
-                 roof: dict) -> list:
+                 roof: dict, mlp_bf16: dict, session: dict) -> list:
     """One entry per TPU function that reaches pl.pallas_call (rows 1-11
-    of PERF.md's table; row 10's three bodies one entry each), plus the
-    gather's backward.  Launches are the room0 run's, the probes' those
-    of the roofline study.  measured_bound_ms: the bytes over the measured
+    of PERF.md's table; row 10's three bodies one entry each; row 5 one
+    entry per mode of its kernel), plus the gather's backward.  Launches
+    are the room0 run's, the probes' those of the roofline study, the
+    fused MLP's bf16 modes those of the session_precision runs.
+    measured_bound_ms: the bytes over the measured
     streaming rate (the faster of the copy probe and clone)."""
     times = kern['times']['finecolor']
     fine = mlp['times']['fine']
@@ -3516,6 +3757,22 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
                                          'index_put_accumulate_ms',
                                          'scatter_bound_ms')))
 
+    def bf16_row(prec):
+        m = mlp_bf16[prec]
+        f = m['main_shapes']['fine']
+        return _entry(f'5 {m["mode"].split("_")[-1]}', m['mode'],
+                      'fused_mlp.cu', pal + 'fused_mlp.py:90',
+                      session[prec]['launches'][m['mode']], m['max_abs_err'],
+                      f['ms'], f['plain_ms'], f['bound_ms'], None,
+                      f'fine decoder, {POINTS_BATCH} points, c 64, '
+                      f'matmul precision {prec} ({m["passes"]} bf16 pass'
+                      f'{"es" if m["passes"] > 1 else ""})',
+                      bound_by=f['bound_by'],
+                      bytes_bound_ms=f['bytes_bound_ms'],
+                      others={k: {x: m['main_shapes'][k][x] for x in (
+                          'ms', 'plain_ms', 'bound_ms')}
+                          for k in ('middle', 'color')})
+
     def probe_row(row, mode, replaces, shape_name='study_variants'):
         r = next(r for r in roof['rows'] if r['probe'] == mode
                  and r['shape_name'] == shape_name)
@@ -3545,6 +3802,7 @@ def kernel_table(kern: dict, mlp: dict, room0: dict, gather: dict,
                others={k: {x: mlp['times'][k][x] for x in (
                    'ms', 'plain_ms', 'bound_ms', 'fp32_core_bound_ms')}
                    for k in ('middle', 'color')}),
+        *(bf16_row(prec) for prec in BF16_MODES),
         gather_row(6, stud + 'proto_gather_sweep.py:57', 'sweep_w1024'),
         gather_row(7, stud + 'proto_pallas_gather.py:42', 'runs48'),
         gather_row(8, stud + 'proto_gather_paths.py:95', 'paths'),
@@ -3615,6 +3873,7 @@ def main(argv=None) -> int:
         lap('build')
         kern = phase_kernels()
         mlp = phase_fused_mlp(ptxas['nice_slam_tpu_torch/csrc/fused_mlp.cu'])
+        mlp_bf16 = phase_fused_mlp_bf16()
         phase_model_parity()
         phase_precision()
         lap('kernels')
@@ -3629,6 +3888,8 @@ def main(argv=None) -> int:
         lap('roofline')
         accuracy_c2w = phase_accuracy()
         lap('accuracy')
+        session = phase_session_precision()
+        lap('session_precision')
         phase_disk_accuracy()
         lap('disk_accuracy')
         with tempfile.TemporaryDirectory() as out:
@@ -3681,7 +3942,8 @@ def main(argv=None) -> int:
             stop_measure(measure)
         return 1
     emit({'phase': 'seconds', **seconds})
-    emit({'kernels': kernel_table(kern, mlp, room0, gather, roof)})
+    emit({'kernels': kernel_table(kern, mlp, room0, gather, roof, mlp_bf16,
+                                  session)})
     print(card, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -3,7 +3,10 @@
 Differentiable, batched float32 camera primitives: the 7-vector
 [quat(wxyz), t] pose parameterization the tracker and BA optimize, its
 inverse (Shepperd's method), and OpenGL-style rays
-(dirs = [(i-cx)/fx, -(j-cy)/fy, -1]).
+(dirs = [(i-cx)/fx, -(j-cy)/fy, -1]).  The rays' product R.dirs is taken
+at the session's matmul precision (models/precision.py), as the JAX
+package's einsum takes `jax_default_matmul_precision`, in the forward and
+in the pose gradient it carries.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from nice_slam_tpu_torch.models import precision as prec
 
 
 class Intrinsics(NamedTuple):
@@ -112,21 +117,30 @@ def tensor_from_c2w(c2w: torch.Tensor) -> torch.Tensor:
 
 
 def rays_from_uv(i: torch.Tensor, j: torch.Tensor, c2w: torch.Tensor,
-                 intr: Intrinsics) -> tuple[torch.Tensor, torch.Tensor]:
+                 intr: Intrinsics, precision: str | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pixel columns `i` and rows `j` [N] -> world rays (origins, unnormalized
-    directions), each [N, 3].  `c2w` is [3or4, 4]."""
+    directions), each [N, 3].  `c2w` is [3or4, 4] (or batched [..., 3or4,
+    4] with i, j [..., N]); the directions' product at the session's
+    `precision`."""
     dirs = torch.stack([(i - intr.cx) / intr.fx, -(j - intr.cy) / intr.fy,
                         -torch.ones_like(i)], dim=-1)
-    rays_d = torch.einsum('...ij,...nj->...ni', c2w[..., :3, :3], dirs)
+    if prec.passes(precision, prec.SESSION_KEY) == 0:
+        rays_d = torch.einsum('...ij,...nj->...ni', c2w[..., :3, :3], dirs)
+    else:
+        rays_d = prec.matmul(dirs, c2w[..., :3, :3].transpose(-1, -2),
+                             precision)
     rays_o = c2w[..., :3, 3][..., None, :].expand(rays_d.shape)
     return rays_o, rays_d
 
 
-def rays_full_image(c2w: torch.Tensor, intr: Intrinsics
+def rays_full_image(c2w: torch.Tensor, intr: Intrinsics,
+                    precision: str | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Rays for every pixel, row-major (j outer, i inner): [H*W, 3] each."""
+    """Rays for every pixel, row-major (j outer, i inner): [H*W, 3] each;
+    the directions' product at `precision`."""
     j, i = torch.meshgrid(
         torch.arange(intr.H, dtype=torch.float32, device=c2w.device),
         torch.arange(intr.W, dtype=torch.float32, device=c2w.device),
         indexing='ij')
-    return rays_from_uv(i.reshape(-1), j.reshape(-1), c2w, intr)
+    return rays_from_uv(i.reshape(-1), j.reshape(-1), c2w, intr, precision)

@@ -5,7 +5,9 @@ Project every grid node into the current depth image, bilinearly sample the
 depth there (zero outside, cv2.remap INTER_LINEAR semantics; zero samples
 replaced by the largest sample), and keep the nodes in front of the camera
 inside the image and no more than 0.5 m behind the sensed surface, plus
-every node within 0.5 m of the camera centre.
+every node within 0.5 m of the camera centre.  The projection's product
+takes the session's matmul precision (models/precision.py); the inverse
+pose stays float32.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from nice_slam_tpu_torch.core.cameras import Intrinsics
+from nice_slam_tpu_torch.models.precision import matmul
 
 
 def bilinear_sample_zero_border(img: torch.Tensor, u: torch.Tensor,
@@ -36,12 +39,14 @@ def bilinear_sample_zero_border(img: torch.Tensor, u: torch.Tensor,
 
 
 def frustum_mask(points: torch.Tensor, c2w: torch.Tensor,
-                 depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+                 depth: torch.Tensor, intr: Intrinsics,
+                 precision: str | None = None) -> torch.Tensor:
     """[M] float32 0/1 mask over grid nodes `points` [M, 3] seen by the
-    camera `c2w` [4, 4] with sensor depth [H, W]."""
+    camera `c2w` [4, 4] with sensor depth [H, W]; the projection at the
+    session's `precision`."""
     w2c = torch.linalg.inv(c2w)
     ones = torch.ones_like(points[:, :1])
-    cam = (torch.cat([points, ones], dim=1) @ w2c.T)[:, :3]
+    cam = matmul(torch.cat([points, ones], dim=1), w2c.T, precision)[:, :3]
     # u = fx * (-x)/z + cx with z < 0 in front (OpenGL-style camera)
     x = -cam[:, 0]
     y = cam[:, 1]

@@ -183,12 +183,13 @@ def draw_map_iteration(n_frames: int, pix_per_frame: int, intr: Intrinsics,
 
 def window_rays(cams: torch.Tensor, colors: torch.Tensor,
                 depths: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
-                intr: Intrinsics):
+                intr: Intrinsics, precision: str | None = None):
     """Rays and ground truth for pixels (i, j) [F, P] of the window frames
     (cams [F, 7], colors [F, H, W, 3], depths [F, H, W]), flattened to
-    [F*P] rays."""
+    [F*P] rays; the directions' product at the session's `precision`."""
     n_frames = cams.shape[0]
-    o, d = rays_from_uv(i, j, c2w_from_tensor(cams), intr)      # [F, P, 3]
+    o, d = rays_from_uv(i, j, c2w_from_tensor(cams), intr,
+                        precision)                             # [F, P, 3]
     f = torch.arange(n_frames, device=cams.device)[:, None]
     jj, ii = j.long(), i.long()
     dgt = depths[f, jj, ii]
@@ -267,7 +268,8 @@ def map_iterations(decoders: Mapping[str, nn.Module], grids: dict,
         stage = STAGE_ORDER[int(stage_idx[it])]
         dr = draw(it)
         o, d, dgt, cgt = window_rays(cams if frames is None else cams[frames],
-                                     colors, depths, dr.i, dr.j, intr)
+                                     colors, depths, dr.i, dr.j, intr,
+                                     model.matmul_precision)
         # bbox prefilter (NICE) as a mask; the far clamp takes the maximum
         # over the whole window's (filtered) depths
         if nice:

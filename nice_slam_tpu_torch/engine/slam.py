@@ -256,7 +256,12 @@ class SlamSystem:
             raise ValueError(f'parallel.devices: {n_par} does not match '
                              f'the world of {self.world.size} rank(s)')
         # true f32 matmuls: reduced-precision passes destabilize the pose
-        # optimization over long sequences (the JAX package pins the same)
+        # optimization over long sequences (the JAX package pins the same
+        # by default).  The config's `matmul_precision` (the session's) and
+        # the decoders' effective precision (`self.dcfg.mm_precision`: their
+        # own key, else the session's) reach the products as explicit
+        # values, `self.model.matmul_precision` and the decoder config;
+        # 'tensorfloat32' is three bfloat16 passes there, never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision('highest')
@@ -290,7 +295,8 @@ class SlamSystem:
             coarse_bound=(torch.tensor(self.gcfg.coarse_bound_np,
                                        device=self.device) if nice else None),
             grid_shapes=static_grid_shapes(self.gcfg) if nice else (),
-            kind='nice' if nice else 'imap')
+            kind='nice' if nice else 'imap',
+            matmul_precision=cfgutil.session_precision(cfg))
         self.coarse_enabled = bool(cfg['coarse']) and self.nice
         if self.coarse_enabled:
             self.coarse_mcfg = cfgutil.mapper_config_from_cfg(
@@ -638,7 +644,8 @@ class SlamSystem:
             c2w = np.asarray(gt_c2w_np, dtype=np.float32)
         else:
             pre = self.estimate_c2w[idx - 1]
-            guess = (const_speed_init(pre, self.estimate_c2w[idx - 2])
+            guess = (const_speed_init(pre, self.estimate_c2w[idx - 2],
+                                      self.model.matmul_precision)
                      if self.tcfg.const_speed and idx >= 2 else pre)
             decoders, grids = self._tracking_snapshot(idx)
             best_cam7, _, losses = track_frame(
@@ -704,7 +711,9 @@ class SlamSystem:
                                          device=self.map_device)
             else:
                 masks[name] = frustum_mask(self._grid_points[name], c2w,
-                                           depth, self.intr)[:, None]
+                                           depth, self.intr,
+                                           self.model.matmul_precision
+                                           )[:, None]
         return masks
 
     def map_frame(self, idx: int, color_np, depth_np, gt_c2w_np, *,

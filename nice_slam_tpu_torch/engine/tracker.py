@@ -23,6 +23,7 @@ from nice_slam_tpu_torch.core.cameras import (
 from nice_slam_tpu_torch.core.sampling import (
     gather_pixels, masked_median, ray_bound_exit, sample_pixels)
 from nice_slam_tpu_torch.models.grids import prepare_grids
+from nice_slam_tpu_torch.models.precision import SESSION_KEY, matmul, passes
 from nice_slam_tpu_torch.render.renderer import (
     RenderConfig, SceneModel, render_rays)
 from nice_slam_tpu_torch.utils.optim import MaskedAdam
@@ -63,7 +64,7 @@ def tracking_loss(cam7: torch.Tensor, decoders: Mapping[str, nn.Module],
     order of the sums.  Returns this rank's share.
     """
     c2w = c2w_from_tensor(cam7)
-    rays_o, rays_d = rays_from_uv(i, j, c2w, intr)
+    rays_o, rays_d = rays_from_uv(i, j, c2w, intr, model.matmul_precision)
     d_gt = gather_pixels(gt_depth, i, j)
     c_gt = gather_pixels(gt_color, i, j)
 
@@ -181,9 +182,16 @@ def track_frame(decoders: Mapping[str, nn.Module], grids: Mapping,
     return best_cam7, last, torch.stack(losses)
 
 
-def const_speed_init(pre_c2w: np.ndarray, pre_pre_c2w: np.ndarray
-                     ) -> np.ndarray:
+def const_speed_init(pre_c2w: np.ndarray, pre_pre_c2w: np.ndarray,
+                     precision: str | None = None) -> np.ndarray:
     """Constant-speed motion model: apply the last relative motion again
-    (both 4x4)."""
-    delta = pre_c2w @ np.linalg.inv(pre_pre_c2w)
-    return delta @ pre_c2w
+    (both 4x4).  The two products at the session's `precision` in float32,
+    as the JAX package computes them; the inverse stays float32."""
+    if passes(precision, SESSION_KEY) == 0:
+        delta = pre_c2w @ np.linalg.inv(pre_pre_c2w)
+        return delta @ pre_c2w
+    pre = torch.from_numpy(np.asarray(pre_c2w, np.float32))
+    inv = torch.from_numpy(np.linalg.inv(np.asarray(pre_pre_c2w,
+                                                    np.float32)))
+    delta = matmul(pre, inv, precision)
+    return matmul(delta, pre, precision).numpy()

@@ -22,6 +22,16 @@ decoder-MLP kernel (`SceneModel.fused_eval`; ops/fused_mlp.py) for NICE
 marching tetrahedra and cleaning run on the host.  `Mesher.timings` holds
 the wall seconds of each piece of the last extraction (every device piece
 ends with its host copy).
+
+This mesher stands in for the JAX package's default one, whose queries
+run its decoders in XLA under their precision scope (its Pallas kernel
+only under NSTPU_FUSED_MLP=1).  So the kernel computes the decoders'
+effective precision (`model.decoder_matmul_precision`, else the session's
+`matmul_precision`): 3xTF32 for the float32 names, one or three bfloat16
+passes for the others.  For BF16_BF16_F32_X6 / _X9, which the kernel has
+no mode for, the queries take the decoders' own forward, chosen when the
+mesher is built (`renderer.with_fused_eval`, which warns).  The seen-frame
+projection and the hull test are products at the session's precision.
 """
 
 from __future__ import annotations
@@ -39,9 +49,10 @@ from nice_slam_tpu_torch.core.cameras import Intrinsics
 from nice_slam_tpu_torch.engine.frustum import bilinear_sample_zero_border
 from nice_slam_tpu_torch.mesh.native import marching_tetrahedra
 from nice_slam_tpu_torch.models.grids import prepare_grids
+from nice_slam_tpu_torch.models.precision import matmul
 from nice_slam_tpu_torch.parallel.sharded import sharded_eval_points
 from nice_slam_tpu_torch.render.renderer import (
-    RenderConfig, SceneModel, eval_raw, render_rays)
+    RenderConfig, SceneModel, eval_raw, render_rays, with_fused_eval)
 
 
 class MesherConfig(NamedTuple):
@@ -70,8 +81,9 @@ class Mesher:
         extraction."""
         self.cfg = mcfg
         self.group = group if group is not None and group.size > 1 else None
-        # every query of the mesher is forward-only: the fused kernel
-        self.model = model._replace(fused_eval=True)
+        # every query of the mesher is forward-only: the fused kernel, at
+        # the decoders' effective precision when it has a mode for it
+        self.model = with_fused_eval(model)
         self.intr = intr
         self.device = model.bound.device
         self._ray_rcfg = rcfg if rcfg is not None else RenderConfig()
@@ -157,7 +169,8 @@ class Mesher:
         intr = self.intr
         w2c = torch.linalg.inv(c2w)
         ones = torch.ones_like(pts[:, :1])
-        cam = (torch.cat([pts, ones], dim=1) @ w2c.T)[:, :3]
+        cam = matmul(torch.cat([pts, ones], dim=1), w2c.T,
+                     self.model.matmul_precision)[:, :3]
         z = cam[:, 2] + 1e-5
         u = (intr.fx * (-cam[:, 0]) + intr.cx * z) / z
         v = (intr.fy * cam[:, 1] + intr.cy * z) / z
@@ -225,12 +238,14 @@ class Mesher:
                     tol: float = 1e-6, cache: str | None = None
                     ) -> np.ndarray:
         """Convex-hull membership from the half-space equations, one
-        [chunk, 3] x [3, F] product per chunk on the device."""
+        [chunk, 3] x [3, F] product per chunk on the device, at the
+        session's precision."""
         pts = self._points(points, cache)
         eq = torch.as_tensor(equations, device=self.device)
         out = torch.empty((len(pts),), dtype=torch.bool, device=self.device)
         for i, j in self._chunks(len(pts)):
-            d = pts[i:j] @ eq[:, :3].T + eq[:, 3]
+            d = matmul(pts[i:j], eq[:, :3].T,
+                       self.model.matmul_precision) + eq[:, 3]
             out[i:j] = torch.amax(d, dim=1) <= tol
         return out.cpu().numpy()
 

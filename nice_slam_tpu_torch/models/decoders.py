@@ -14,11 +14,15 @@
   * `mlp_dispatch`: `MLP.forward`, or with `fused=True` the fused CUDA
     kernel of ops/fused_mlp.py (Fourier embedding with grid features only;
     other configurations, iMAP's among them, take `MLP.forward`).
-  * `DecoderConfig.mm_precision` (`model.decoder_matmul_precision`): every
+  * `DecoderConfig.mm_precision`, the decoders' effective precision
+    (`model.decoder_matmul_precision`, else the session's
+    `matmul_precision`; utils/config.decoder_config_from_cfg): every
     product of `MLP` and `MLP_no_xyz`, the Fourier embedding's `p @ B` and
     the backward's included, at that precision (models/precision.py).  The
-    fused kernel keeps its own (3xTF32, FP32 accuracy) whatever the key
-    says, as the JAX package calls its Pallas kernel outside the scope.
+    fused kernel computes it too, in its mode for it (3xTF32 for the
+    float32 names, one or three bf16 passes): the port's eval paths stand
+    in for the JAX package's default ones, whose decoders run in XLA
+    under the same scope.
 
 Module and parameter names follow the reference's torch decoders
 (`pts_linears.i`, `fc_c.i`, `output_linear`, `embedder._B`), so a pretrained
@@ -217,8 +221,9 @@ def mlp_dispatch(mlp: MLP, p: torch.Tensor, c_feat: torch.Tensor | None,
     """`mlp(p, c_feat)`, or the fused kernel when asked for and applicable
     (the Fourier-embedding MLP with grid features; the kernel takes
     contiguous inputs, so the feature slices are made contiguous).  With no
-    grid features (iMAP*) it is always `mlp(p, None)`.  The kernel ignores
-    `mm_precision`, as the JAX package's Pallas kernel does."""
+    grid features (iMAP*) it is always `mlp(p, None)`.  The kernel computes
+    the MLP's `mm_precision` and raises for one it has no mode for
+    (ops/fused_mlp.has_mode)."""
     if (fused and mlp.cfg.pos_embedding_method == 'fourier'
             and c_feat is not None):
         return fused_mlp(mlp, p.contiguous(), c_feat.contiguous())

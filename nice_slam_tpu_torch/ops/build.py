@@ -44,11 +44,14 @@ def _compile(cmd_of_output, library: str) -> str:
 
 def compile_cuda(source: str, library: str) -> str:
     """nvcc for sm_90a (true FP32 maths: no fast-math flags); returns
-    ptxas's register and spill report."""
+    ptxas's register and spill report.  `--split-compile=0` compiles the
+    kernels of a source on all the host's cores (fused_mlp.cu's twelve
+    instantiations: 14.6 s against 25.2 s on the H100 machine, the same
+    code bit for bit; PERF.md section 6)."""
     return _compile(lambda out: [
         _nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
         '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
-        '-o', out, source], library)
+        '--split-compile=0', '-o', out, source], library)
 
 
 def compile_cpp(source: str, library: str) -> str:

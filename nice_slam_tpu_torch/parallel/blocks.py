@@ -26,7 +26,10 @@ The halo exchange is an all-gather of every block's first plane built from
 `all_reduce` (gloo has no point-to-point send for CUDA tensors), so it runs
 on gloo over the CPU, gloo on a shared card and NCCL alike.  The row
 lookups are `ops/gather.gather_rows` and `scatter_add_rows`: the port's
-kernels on the card.
+kernels on the card.  The corner weighting and the point gradient's
+contractions are products at the session's matmul precision
+(`BlockedGrid.precision`, models/precision.py), rounded where the JAX
+package's `jnp.einsum` puts its `dot_general`s.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from nice_slam_tpu_torch.engine.mapper import (
     as_map_draws, draw_map_iteration, map_iterations)
+from nice_slam_tpu_torch.models.precision import SESSION_KEY, matmul, passes
 from nice_slam_tpu_torch.ops.gather import gather_rows, scatter_add_rows
 from nice_slam_tpu_torch.parallel.mesh import RankGroup
 
@@ -49,13 +53,15 @@ class BlockedGrid:
     block's first plane appended (x-major rows); x_start: the global x index
     of the slab's first plane; shape: the true (nx, ny, nz), so border
     clamping matches the whole volume; local_nx: planes per block (nx padded
-    up to a multiple of the block count); group: the block group."""
+    up to a multiple of the block count); group: the block group;
+    precision: the session's matmul precision (None: float32)."""
 
     slab_h: torch.Tensor
     x_start: int
     shape: tuple[int, int, int]
     local_nx: int
     group: RankGroup
+    precision: str | None = None
 
 
 class HaloExchange(torch.autograd.Function):
@@ -90,11 +96,13 @@ def halo_exchange(slab: torch.Tensor, ny: int, nz: int, group: RankGroup
 
 
 def make_blocked(slab: torch.Tensor, shape: tuple[int, int, int],
-                 local_nx: int, group: RankGroup) -> BlockedGrid:
+                 local_nx: int, group: RankGroup,
+                 precision: str | None = None) -> BlockedGrid:
     """This rank's slab as a `BlockedGrid` (the halo exchanged)."""
     _, ny, nz = shape
     return BlockedGrid(halo_exchange(slab, ny, nz, group),
-                       group.rank * local_nx, tuple(shape), local_nx, group)
+                       group.rank * local_nx, tuple(shape), local_nx, group,
+                       precision)
 
 
 def _corner_geometry(shape, local_nx: int, x_start: int,
@@ -130,6 +138,30 @@ def _axis_weights(frac: torch.Tensor):
             torch.cat([1.0 - fz, fz], 1))
 
 
+def _weighted_corners(feats: torch.Tensor, w: torch.Tensor,
+                      precision: str | None) -> torch.Tensor:
+    """einsum('nkc,nk->nc', feats [N, 8, C], w [N, 8]) at `precision`:
+    one product over k per point."""
+    if passes(precision, SESSION_KEY) == 0:
+        return torch.einsum('nkc,nk->nc', feats, w)
+    return matmul(w[:, None, :], feats, precision)[:, 0]
+
+
+def _axis_gradient(diff: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
+                   ct: torch.Tensor, precision: str | None) -> torch.Tensor:
+    """einsum('nabc,na,nb,nc->n', diff [N, 2, 2, C], wa, wb [N, 2],
+    ct [N, C]) at `precision`, along the JAX einsum's contraction path:
+    e = diff.ct over c, f = wb (x) wa (a product over no index), then e.f
+    over (a, b), each product rounded."""
+    if passes(precision, SESSION_KEY) == 0:
+        return torch.einsum('nabc,na,nb,nc->n', diff, wa, wb, ct)
+    n = diff.shape[0]
+    e = matmul(diff.reshape(n, 4, -1), ct[:, :, None], precision)
+    f = matmul(wb[:, :, None], wa[:, None, :], precision)      # [N, b, a]
+    return matmul(e.reshape(n, 1, 4), f.transpose(1, 2).reshape(n, 4, 1),
+                  precision)[:, 0, 0]
+
+
 class BlockedInterp(torch.autograd.Function):
     """Trilinear interpolation of normalized points [N, 3] against a
     blocked volume, with the gradient routing of the module note: forward,
@@ -140,7 +172,8 @@ class BlockedInterp(torch.autograd.Function):
     group."""
 
     @staticmethod
-    def forward(ctx, slab_h, p_nor, shape, local_nx, x_start, group):
+    def forward(ctx, slab_h, p_nor, shape, local_nx, x_start, group,
+                precision):
         rows, frac, mine, in_range, sizes = _corner_geometry(
             shape, local_nx, x_start, p_nor)
         wx, wy, wz = _axis_weights(frac)
@@ -149,12 +182,12 @@ class BlockedInterp(torch.autograd.Function):
         c = slab_h.shape[1]
         flat_rows = rows.reshape(-1).contiguous()
         feats = gather_rows(slab_h, flat_rows).reshape(-1, 8, c)
-        out = torch.einsum('nkc,nk->nc', feats, w)
+        out = _weighted_corners(feats, w, precision)
         out = torch.where(mine[:, None], out, torch.zeros_like(out))
         out, = group.sum_list([out])
         ctx.save_for_backward(slab_h, flat_rows, w, frac, mine, in_range,
                               sizes)
-        ctx.group = group
+        ctx.group, ctx.precision = group, precision
         return out
 
     @staticmethod
@@ -171,18 +204,17 @@ class BlockedInterp(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             feats = gather_rows(slab_h, flat_rows).reshape(-1, 2, 2, 2, c)
             wx, wy, wz = _axis_weights(frac)
-            gx = torch.einsum('nyzc,ny,nz,nc->n',
-                              feats[:, 1] - feats[:, 0], wy, wz, ct_owned)
-            gy = torch.einsum('nxzc,nx,nz,nc->n',
-                              feats[:, :, 1] - feats[:, :, 0], wx, wz,
-                              ct_owned)
-            gz = torch.einsum('nxyc,nx,ny,nc->n',
-                              feats[:, :, :, 1] - feats[:, :, :, 0], wx, wy,
-                              ct_owned)
+            prec = ctx.precision
+            gx = _axis_gradient(feats[:, 1] - feats[:, 0], wy, wz,
+                                ct_owned, prec)
+            gy = _axis_gradient(feats[:, :, 1] - feats[:, :, 0], wx, wz,
+                                ct_owned, prec)
+            gz = _axis_gradient(feats[:, :, :, 1] - feats[:, :, :, 0], wx,
+                                wy, ct_owned, prec)
             d_idx = torch.stack([gx, gy, gz], dim=-1)
             d_p = d_idx * in_range.to(d_idx.dtype) * 0.5 * (sizes - 1.0)
             d_p, = ctx.group.sum_list([d_p])
-        return d_slab, d_p, None, None, None, None
+        return d_slab, d_p, None, None, None, None, None
 
 
 def trilinear_interp_blocked(bg: BlockedGrid, p_nor: torch.Tensor
@@ -191,7 +223,7 @@ def trilinear_interp_blocked(bg: BlockedGrid, p_nor: torch.Tensor
     blocked volume: `ops.trilinear.trilinear_interp`'s values up to the
     order of the sums; see `BlockedInterp` for the gradients."""
     return BlockedInterp.apply(bg.slab_h, p_nor, bg.shape, bg.local_nx,
-                               bg.x_start, bg.group)
+                               bg.x_start, bg.group, bg.precision)
 
 
 def plan_blocks(grid_shapes_t: tuple, n_block: int) -> dict[str, dict]:
@@ -260,7 +292,8 @@ def blocked_map_step(decoders, slabs: dict, cams: torch.Tensor, *,
         # every volume, in name order on every rank: the halo exchanges
         # are collectives over the block group
         return {name: make_blocked(grids[name], plan[name]['shape'],
-                                   plan[name]['local_nx'], block_group)
+                                   plan[name]['local_nx'], block_group,
+                                   kw['model'].matmul_precision)
                 for name in sorted(grids)}
 
     return map_iterations(decoders, slabs, cams, pix_per_frame=local,

@@ -12,6 +12,7 @@ merged with the first ones in depth order before compositing again.
 
 from __future__ import annotations
 
+import warnings
 from typing import Mapping, NamedTuple
 
 import torch
@@ -24,6 +25,7 @@ from nice_slam_tpu_torch.core.sampling import (
 from nice_slam_tpu_torch.models.decoders import (
     DecoderConfig, imap_eval, nice_eval)
 from nice_slam_tpu_torch.models.grids import prepare_grids
+from nice_slam_tpu_torch.ops.fused_mlp import has_mode
 
 
 class RenderConfig(NamedTuple):
@@ -47,10 +49,13 @@ class SceneModel(NamedTuple):
     volume) and the ((name, (nx, ny, nz)), ...) grid shapes.  `fused_eval`
     sends the decoder MLPs through the fused forward kernel
     (ops/fused_mlp.py); the eval-only paths (mesher, full-frame renders)
-    set it with `model._replace(fused_eval=True)`, tracking and mapping
-    keep the plain path.  `kind` is 'nice' (the volumes and the NICE
-    decoders) or 'imap' (one decoder under the key 'imap', no volumes, no
-    coarse bound)."""
+    set it with `with_fused_eval(model)`, tracking and mapping keep the
+    plain path.  `kind` is 'nice' (the volumes and the NICE decoders) or
+    'imap' (one decoder under the key 'imap', no volumes, no coarse
+    bound).  `matmul_precision` is the session's (config
+    `matmul_precision`, None for float32; models/precision.py): the
+    precision of the products outside the decoders (rays, projections,
+    poses); the decoders' own is `decoder.mm_precision`."""
 
     decoder: DecoderConfig
     bound: torch.Tensor
@@ -58,6 +63,24 @@ class SceneModel(NamedTuple):
     grid_shapes: tuple = ()
     fused_eval: bool = False
     kind: str = 'nice'
+    matmul_precision: str | None = None
+
+
+def with_fused_eval(model: SceneModel) -> SceneModel:
+    """`model` with the NICE decoders through the fused kernel, at the
+    decoders' effective precision, when the kernel has a mode for it
+    (`fused_mlp.has_mode`); else `model` as it is, so its decoders take
+    their own forward (the BF16_BF16_F32_X6 / _X9 rules), with a warning
+    that says so.  Chosen before anything launches."""
+    if model.kind != 'nice':
+        return model
+    if not has_mode(model.decoder.mm_precision):
+        warnings.warn(
+            f'the fused decoder kernel has no mode for '
+            f'{model.decoder.mm_precision!r}: the eval-only paths take the '
+            "decoders' own forward", UserWarning, stacklevel=2)
+        return model
+    return model._replace(fused_eval=True)
 
 
 def eval_raw(decoders: Mapping[str, nn.Module], grids: Mapping,
@@ -156,7 +179,7 @@ def render_image(decoders: Mapping[str, nn.Module], grids: Mapping,
     with torch.no_grad():
         if model.kind == 'nice':
             grids = prepare_grids(grids, model.grid_shapes, stage=stage)
-        rays_o, rays_d = rays_full_image(c2w, intr)
+        rays_o, rays_d = rays_full_image(c2w, intr, model.matmul_precision)
         n = intr.H * intr.W
         chunk = min(rcfg.ray_chunk, n)
         pad = (-n) % chunk

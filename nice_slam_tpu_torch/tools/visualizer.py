@@ -11,6 +11,13 @@ trajectory so far in x-z.  `--no-rgb` skips the volume renders, the
 expensive part; `--save_video` also writes `<output>/replay.mp4` when
 `ffmpeg` is on PATH.  The images are utils/draw.py's (no matplotlib).
 
+The matmul precision of the renders: the JAX tool builds its model outside
+a SlamSystem and never sets `jax_default_matmul_precision`, so on a TPU
+its products take the matrix unit's default, one bfloat16 pass, whatever
+the config's `matmul_precision` says.  This tool follows it: the rays at
+'bfloat16', the decoders at `model.decoder_matmul_precision` or else
+'bfloat16' (the fused kernel's one-pass mode on the card).
+
     python -m nice_slam_tpu_torch.tools.visualizer configs/Replica/room0.yaml \
         [--output DIR] [--stride 10] [--save_video] [--no-rgb] [--device cpu]
 
@@ -30,14 +37,21 @@ import torch
 REPLAY_W = 320
 
 
+# the JAX tool's session precision: never set, the TPU's default
+SESSION_PRECISION = 'bfloat16'
+
+
 def load_scene(cfg: dict, state: dict, device):
     """(decoders, grids, model) of a NICE checkpoint, the model with the
-    fused decoders (as the mesher and the panels render)."""
+    fused decoders (as the mesher and the panels render) at the JAX tool's
+    precision (`SESSION_PRECISION`; the module note)."""
     from nice_slam_tpu_torch.models.decoders import init_nice_decoders
     from nice_slam_tpu_torch.models.grids import static_grid_shapes
-    from nice_slam_tpu_torch.render.renderer import SceneModel
+    from nice_slam_tpu_torch.render.renderer import (
+        SceneModel, with_fused_eval)
     from nice_slam_tpu_torch.utils import config as cfgutil
-    dcfg = cfgutil.decoder_config_from_cfg(cfg)
+    dcfg = cfgutil.decoder_config_from_cfg(
+        {**cfg, 'matmul_precision': SESSION_PRECISION})
     gcfg = cfgutil.grid_config_from_cfg(cfg)
     decoders = init_nice_decoders(dcfg, generator=None, device='cpu')
     for name, sd in state['decoders'].items():
@@ -45,10 +59,11 @@ def load_scene(cfg: dict, state: dict, device):
             {k: torch.as_tensor(v) for k, v in sd.items()})
     grids = {k: torch.as_tensor(v).reshape(-1, v.shape[-1]).to(device)
              for k, v in state['grids'].items()}
-    model = SceneModel(
+    model = with_fused_eval(SceneModel(
         decoder=dcfg, bound=torch.tensor(gcfg.bound_np, device=device),
         coarse_bound=torch.tensor(gcfg.coarse_bound_np, device=device),
-        grid_shapes=static_grid_shapes(gcfg), fused_eval=True)
+        grid_shapes=static_grid_shapes(gcfg),
+        matmul_precision=SESSION_PRECISION))
     return decoders.to(device), grids, model
 
 

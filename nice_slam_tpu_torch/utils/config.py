@@ -8,9 +8,9 @@ package's config tree loads unchanged.
 
 `HONOURED` and `UNPORTED_OPTIONS` account for every key the JAX package's
 SlamSystem and config readers read; `check_options` (called first by
-SlamSystem) warns about the unported ones (the session-wide matmul
-precision and the TPU compile re-roll), so no option of a config is ignored
-without a word.
+SlamSystem) refuses a `matmul_precision` without a rule and warns about the
+unported keys (the TPU compile re-roll), so no option of a config is
+ignored without a word.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ HONOURED = frozenset({
     'grid_len.fine', 'grid_len.color',
     'model.c_dim', 'model.coarse_bound_enlarge',
     'model.pos_embedding_method', 'model.decoder_matmul_precision',
+    'matmul_precision',
     'rendering.N_samples', 'rendering.N_surface', 'rendering.N_importance',
     'rendering.lindisp', 'rendering.perturb', 'rendering.grad_z',
     'occupancy', 'coarse', 'scale', 'verbose', 'dataset',
@@ -87,17 +88,12 @@ _ABSENT = object()   # the key is not in the config
 _AUTOTUNE = ("the JAX package's TPU compile re-roll is not ported (the "
              "port's 'Semantics, not TPU workarounds' rule); it has no "
              'effect here')
-_F32 = ('the session-wide matmul precision (pose math, sampling, losses '
-        'and decoders alike) is not ported: the port keeps every product '
-        'true float32 (TF32 off), the JAX package\'s default; '
-        'model.decoder_matmul_precision sets the decoder stack\'s alone')
 
 # The options the port does not act on: key -> (the JAX package's value
 # when the key is absent, the values that change nothing there, what the
 # key drives).  When a config gives a key (or its absence gives it) any
 # other value, SlamSystem warns once; the run is the same.
 UNPORTED_OPTIONS = {
-    'matmul_precision': ('float32', ('float32', 'highest'), _F32),
     'tracking.autotune_ms': (_ABSENT, (), _AUTOTUNE),
     'tracking.autotune_candidates': (_ABSENT, (), _AUTOTUNE),
     'mapping.autotune_ms_per_iter': (_ABSENT, (), _AUTOTUNE),
@@ -114,10 +110,20 @@ def _lookup(cfg: dict, key: str):
     return node
 
 
+def session_precision(cfg: dict) -> str | None:
+    """The session-wide `matmul_precision` ('float32' when absent, as the
+    JAX package's SlamSystem reads it): None for the float32 names, else
+    the name; ValueError for a name without a rule
+    (models/precision.py)."""
+    name = cfg.get('matmul_precision', 'float32')
+    return name if precision.passes(name, precision.SESSION_KEY) else None
+
+
 def check_options(cfg: dict) -> list[str]:
-    """Warn once for every unported option the config sets to a value
-    that would change the JAX package's run.  Returns the warnings'
-    messages."""
+    """Refuse a `matmul_precision` without a rule, and warn once for
+    every unported option the config sets to a value that would change the
+    JAX package's run.  Returns the warnings' messages."""
+    session_precision(cfg)
     messages = []
     for key, (default, inert, what) in UNPORTED_OPTIONS.items():
         value = _lookup(cfg, key)
@@ -192,10 +198,15 @@ def grid_config_from_cfg(cfg: dict) -> GridConfig:
 
 
 def decoder_config_from_cfg(cfg: dict) -> DecoderConfig:
-    """The decoders' config; ValueError for a
-    `model.decoder_matmul_precision` that names no precision."""
+    """The decoders' config.  Its `mm_precision` is the decoders'
+    effective precision: `model.decoder_matmul_precision`, or when that is
+    absent the session's (`session_precision`), as the JAX package's
+    decoders run under their own scope or else under the session's.
+    ValueError for a name without a rule."""
     mm_precision = cfg['model'].get('decoder_matmul_precision')
     precision.passes(mm_precision)
+    if mm_precision is None:
+        mm_precision = session_precision(cfg)
     return DecoderConfig(
         c_dim=int(cfg['model']['c_dim']),
         pos_embedding_method=cfg['model']['pos_embedding_method'],

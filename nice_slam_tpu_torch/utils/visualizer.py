@@ -25,7 +25,7 @@ import torch
 
 from nice_slam_tpu_torch.core.cameras import Intrinsics
 from nice_slam_tpu_torch.render.renderer import (
-    RenderConfig, SceneModel, render_image)
+    RenderConfig, SceneModel, render_image, with_fused_eval)
 from nice_slam_tpu_torch.utils import draw
 
 TITLES = ('input depth', 'rendered depth', 'depth residual',
@@ -73,9 +73,7 @@ class Visualizer:
                  verbose: bool = False):
         self.vis_dir = vis_dir
         self.freq = max(int(freq), 1)
-        if model.kind == 'nice':
-            model = model._replace(fused_eval=True)
-        self.model = model
+        self.model = with_fused_eval(model)
         self.rcfg = rcfg
         self.intr = intr
         self.verbose = verbose

@@ -5,7 +5,8 @@ config, several seeds, on the CPU.
         [--config configs/Synthetic/synthetic.yaml] [--seeds 0 1 2] \
         [--package jax|torch] [--device cpu|cuda] [--recon] \
         [--sync strict|loose|free] [--imap] [--disk replica|...] \
-        [--parallel N [--parallel-map rays|kf|none]]
+        [--parallel N [--parallel-map rays|kf|none]] \
+        [--session-precision NAME]
 
 Runs the whole sequence through `SlamSystem` of the JAX package (default)
 or of the port (`--package torch`, on `--device`) for each seed and prints
@@ -45,6 +46,14 @@ directory in dataset KIND's on-disk format with the port's writer
 quality 97, uint16 PNG depth), then runs every seed through that format's
 loader from those files: the JAX package decodes them with cv2, the port
 with its own codecs.  The mesh is scored against the same analytic scene.
+
+--session-precision NAME sets the config's session-wide
+`matmul_precision` (e.g. bfloat16, tensorfloat32).  The JAX package then
+runs under tests/tpu_matmul_rule.py, which lowers its products on the CPU
+as the TPU's matrix unit computes them (XLA:CPU would compute them in
+float32); the port computes the rule itself.  A run whose poses go
+non-finite prints its row with `finite: false` and the first such frame,
+and the summary then sets no bound.
 """
 
 from __future__ import annotations
@@ -66,6 +75,8 @@ def base_config(nice: bool) -> str:
 
 def run_jax(cfg: dict, seed: int, out: str, recon: bool,
             nice: bool = True):
+    import contextlib
+
     import jax
     jax.config.update('jax_platforms', 'cpu')
     from nice_slam_tpu.engine.slam import SlamSystem
@@ -73,10 +84,15 @@ def run_jax(cfg: dict, seed: int, out: str, recon: bool,
     cfg['verbose'] = False
     cfg['enable_vis'] = False
     cfg.setdefault('meshing', {})['eval_rec'] = False
-    slam = SlamSystem(cfg, nice=nice, output=out, seed=seed)
-    if not recon:
-        slam.mesher = None   # only the trajectory is scored
-    slam.run()
+    rule = contextlib.nullcontext()
+    if cfg.get('matmul_precision', 'float32') not in ('float32', 'highest'):
+        from tests.tpu_matmul_rule import tpu_matmul_rule
+        rule = tpu_matmul_rule()
+    with rule:
+        slam = SlamSystem(cfg, nice=nice, output=out, seed=seed)
+        if not recon:
+            slam.mesher = None   # only the trajectory is scored
+        slam.run()
     return slam.estimate_c2w, slam.gt_c2w
 
 
@@ -127,6 +143,9 @@ def main() -> None:
     ap.add_argument('--parallel-map', choices=('rays', 'kf', 'none'),
                     default='rays',
                     help="with --parallel: the config's parallel.map")
+    ap.add_argument('--session-precision', metavar='NAME',
+                    help="the config's matmul_precision (the JAX package "
+                    "under the TPU's rule, tests/tpu_matmul_rule.py)")
     args = ap.parse_args()
     if args.parallel:
         if args.package != 'jax':
@@ -148,6 +167,8 @@ def main() -> None:
         cfg['sync_method'] = args.sync
     if args.parallel:
         cfg['parallel'] = {'track': 'rays', 'map': args.parallel_map}
+    if args.session_precision:
+        cfg['matmul_precision'] = args.session_precision
     rows = []
     with tempfile.TemporaryDirectory() as data:
         t0 = time.perf_counter()
@@ -163,28 +184,42 @@ def main() -> None:
                 else:
                     est, gt = run_torch(cfg, seed, args.device, out,
                                         args.recon, nice=not args.imap)
-                recon = score_mesh(out, cfg) if args.recon else {}
+                finite = bool(np.isfinite(est).all())
+                recon = (score_mesh(out, cfg) if args.recon and finite
+                         else {})
             err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
-            ate = evaluate_ate(est, gt)
+            if finite:
+                ate = evaluate_ate(est, gt)
+                extra = {'ate_rmse_m':
+                         ate['absolute_translational_error.rmse'],
+                         'max_frame_err_m': float(err.max())}
+            else:
+                bad = ~np.isfinite(est).reshape(len(est), -1).all(axis=1)
+                extra = {'first_non_finite_frame': int(np.argmax(bad)),
+                         'max_frame_err_m_before': float(
+                             err[:int(np.argmax(bad))].max(initial=0.0))}
             row = {'package': args.package, 'seed': seed,
-                   'frames': len(err),
-                   'ate_rmse_m': ate['absolute_translational_error.rmse'],
-                   'max_frame_err_m': float(err.max()), **recon,
+                   'frames': len(err), 'finite': finite, **extra, **recon,
                    'seconds': time.perf_counter() - t0}
             rows.append(row)
             print(json.dumps(row), flush=True)
-    worst_rmse = max(r['ate_rmse_m'] for r in rows)
-    worst_max = max(r['max_frame_err_m'] for r in rows)
     summary = {'package': args.package, 'config': args.config,
                'method': 'imap' if args.imap else 'nice',
                'sync_method': args.sync or 'as loaded', 'seeds': args.seeds,
                'parallel_devices': args.parallel or None,
                'parallel': cfg.get('parallel'),
+               'matmul_precision': cfg.get('matmul_precision', 'float32'),
                'disk': args.disk, 'write_s': write_s,
-               'worst_ate_rmse_m': worst_rmse,
-               'worst_max_frame_err_m': worst_max,
-               'bound_ate_rmse_m': 1.5 * worst_rmse,
-               'bound_max_frame_err_m': 1.5 * worst_max}
+               'all_finite': all(r['finite'] for r in rows)}
+    if not summary['all_finite']:
+        print(json.dumps(summary))   # no bound from a non-finite seed
+        return
+    worst_rmse = max(r['ate_rmse_m'] for r in rows)
+    worst_max = max(r['max_frame_err_m'] for r in rows)
+    summary.update(worst_ate_rmse_m=worst_rmse,
+                   worst_max_frame_err_m=worst_max,
+                   bound_ate_rmse_m=1.5 * worst_rmse,
+                   bound_max_frame_err_m=1.5 * worst_max)
     if args.recon:
         worst_acc = max(r['accuracy_cm'] for r in rows)
         worst_comp = max(r['completion_cm'] for r in rows)

@@ -109,11 +109,10 @@ def test_every_key_the_jax_package_reads_is_accounted_for():
     assert not missing, sorted(missing)
     for key, (_, inert, what) in UNPORTED_OPTIONS.items():
         assert what, key
-    # only the session-wide matmul precision and the TPU compile re-roll
-    # stay unported; the decoder stack's precision is honoured
-    assert 'model.decoder_matmul_precision' in HONOURED
+    # only the TPU compile re-roll stays unported; the decoder stack's
+    # precision and the session-wide one are honoured
+    assert {'model.decoder_matmul_precision', 'matmul_precision'} <= HONOURED
     assert set(UNPORTED_OPTIONS) == {
-        'matmul_precision',
         'tracking.autotune_ms', 'tracking.autotune_candidates',
         'mapping.autotune_ms_per_iter', 'mapping.autotune_candidates'}
 
@@ -186,13 +185,16 @@ def test_inert_values_pass_and_warned_keys_warn_once(tmp_path):
         warnings.simplefilter('always')
         slam = SlamSystem(cfg, device='cpu', output=str(tmp_path))
     messages = [str(w.message) for w in caught]
-    for key in ('matmul_precision', 'mapping.autotune_candidates'):
-        assert sum(m.startswith(key + ':') for m in messages) == 1, messages
-    # the decoder stack's precision is honoured, without a warning
-    assert not any(m.startswith('model.decoder_matmul_precision')
-                   for m in messages), messages
+    assert sum(m.startswith('mapping.autotune_candidates:')
+               for m in messages) == 1, messages
+    # both precisions are honoured, without a warning
+    assert not any(m.startswith(('model.decoder_matmul_precision',
+                                 'matmul_precision')) for m in messages), \
+        messages
     assert slam.dcfg.mm_precision == 'bfloat16'
-    # the session-wide precision is ignored: true float32 matmuls
+    assert slam.model.matmul_precision == 'bfloat16'
+    # it reaches the products as values: torch's own float32 products stay
+    # true float32 (TF32 off)
     assert torch.get_float32_matmul_precision() == 'highest'
     assert slam.n_img == 2
 

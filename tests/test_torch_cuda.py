@@ -180,6 +180,35 @@ def test_fused_mlp_is_fp32_precise_at_the_mesh_chunk(cuda, decoders, name,
     assert float((got - want).abs().max()) <= tol
 
 
+@pytest.mark.parametrize('precision', ['bfloat16', 'tensorfloat32'])
+@pytest.mark.parametrize('n', [17, 4097, 262144 + 13])
+@pytest.mark.parametrize('name,c_dim,color', MLP_DECODERS)
+def test_fused_mlp_bf16_modes_match_plain(cuda, decoders, n, name, c_dim,
+                                          color, precision):
+    """The one- and three-pass bf16 modes against the plain version at the
+    same precision over room0's bound, by chip_smoke.py's criterion: the
+    largest difference at most 2e-2 x max(1, max|plain|), and from 4,097
+    points the median at most 1e-5 and at most 2% beyond 1e-4 of
+    max|plain| (a float32 sum on the other side of a bf16 rounding
+    boundary moves the next layer's input by one bf16 ulp)."""
+    mlp = _mlp(name, decoders, cuda)
+    p, c = _mlp_inputs(n, c_dim, cuda, seed=n + 2, bound=ROOM0_BOUND)
+    params = [w.detach() for w in fm.mlp_params(mlp)]
+    fm.reset_launch_counts()
+    got = fm.fused_mlp_forward(p, c, params, color=color,
+                               precision=precision)
+    want = fm.fused_mlp_plain(p, c, params, color=color, precision=precision)
+    torch.cuda.synchronize()
+    mode = fm.MODES[fm.mode_of(precision)]
+    assert fm.LAUNCHES == {k: int(k == mode) for k in fm.LAUNCHES}
+    d = (got - want).abs().double()
+    top = float(want.abs().max())
+    assert float(d.max()) <= 2e-2 * max(1.0, top)
+    if n >= 4097:
+        assert float(d.median()) <= 1e-5 * top
+        assert float((d > 1e-4 * top).double().mean()) <= 0.02
+
+
 def test_fused_mlp_packs_once_per_parameter_set(cuda, decoders):
     mlp = decoders['fine']
     p, c = _mlp_inputs(100, 64, cuda)

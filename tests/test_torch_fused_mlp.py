@@ -117,7 +117,7 @@ def test_backward_only_computes_what_is_asked(setup):
     mlp = decs['middle']
     with torch.no_grad():
         params = [w.detach() for w in fm.mlp_params(mlp)]
-    out = fm.FusedMLP.apply(t_of(p), ct, False, *params)
+    out = fm.FusedMLP.apply(t_of(p), ct, False, None, *params)
     g, = torch.autograd.grad(out.sum(), [ct])
     cl = t_of(c).requires_grad_()
     want, = torch.autograd.grad(mlp(t_of(p), cl).sum(), [cl])
@@ -375,3 +375,173 @@ def test_tolerance_fails_fewer_tf32_products(setup, name, c_dim, color,
     cheap = emulate_kernel(p, c, packed, c_dim, out_dim, products=products)
     assert float((exact - plain).abs().max()) <= tol
     assert float((cheap - plain).abs().max()) > tol
+
+
+# ---------------------------------------------------------------------------
+# the bf16 modes (the decoders' effective precision not float32)
+# ---------------------------------------------------------------------------
+
+BF16_MODES = [('bfloat16', 1), ('tensorfloat32', 3)]
+
+
+def _bf16_values(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+@pytest.mark.parametrize('n_passes', [1, 3])
+@pytest.mark.parametrize('name,c_dim,out_dim', [
+    ('middle', 32, 1), ('fine', 64, 1), ('color', 32, 4), ('fine4', 64, 4)])
+def test_unpack_inverts_pack_bf16(setup, name, c_dim, out_dim, n_passes):
+    """The bf16 modes' buffer: B as its bf16 parts, the biases as they
+    are, every product weight as the parts models/precision.split gives,
+    in the m16n8k16 fragment order and back, at the kernel's length."""
+    from nice_slam_tpu_torch.models.precision import split
+    params = [w.detach() for w in fm.mlp_params(_mlp(name, setup[2]))]
+    packed = fm.pack_weights(params, n_passes)
+    assert packed.numel() == fm.pack_size(c_dim, n_passes)
+    got = fm.unpack(packed, c_dim, out_dim, n_passes)
+    b_mat, pts, fcs, w_o, b_o = fm._split(params)
+
+    def parts(w):
+        return tuple(x.float() for x in split(w, n_passes))
+
+    def same(a, b):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+    same(got['B'], parts(b_mat)[0])
+    if n_passes == 3:
+        same(got['B_lo'], parts(b_mat)[1])
+    same(got['b_o'], b_o)
+    for i in range(fm.N_BLOCKS):
+        same(got['b'][i], pts[i][1])
+        same(got['bc'][i], fcs[i][1])
+        for mine, w in ((got['W'][i], pts[i][0]), (got['Wc'][i], fcs[i][0])):
+            assert len(mine) == len(parts(w))
+            for a, b in zip(mine, parts(w)):
+                same(a, b)
+    for a, b in zip(got['W_o'], parts(w_o)):
+        same(a, b)
+
+
+def test_bf16_fragment_order_is_the_mma_layout():
+    """One (k16, n8) tile of a weight: lane 4g + t holds rows (n) g and
+    columns (k) 2t, 2t+1 in its first word, 2t+8, 2t+9 in its second, the
+    lower column in the low half (mma.m16n8k16's B fragment)."""
+    w = torch.arange(8 * 16, dtype=torch.float32).reshape(8, 16)
+    words = fm._fragments_bf16(w, 1).view(torch.int32)
+    assert words.numel() == 64
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(2):
+            word = int(words[2 * lane + j]) & 0xFFFFFFFF
+            lo, hi = (torch.tensor([word & 0xFFFF, word >> 16],
+                                   dtype=torch.int32)
+                      .to(torch.int16).view(torch.bfloat16).float())
+            assert (lo, hi) == (w[g, 8 * j + 2 * t], w[g, 8 * j + 2 * t + 1])
+
+
+def emulate_kernel_bf16(p: torch.Tensor, c: torch.Tensor,
+                        packed: torch.Tensor, c_dim: int, out_dim: int,
+                        n_passes: int) -> torch.Tensor:
+    """csrc/fused_mlp.cu's bf16 modes on the CPU, from its packed buffer:
+    the embedding argument as the kernel's fmaf chains over the bf16 parts
+    of p and B (each fma one float32 rounding; three passes sum (hi, lo),
+    (lo, hi), then (hi, hi)), precise sin in float32, and every product as
+    the passes of its operands' bf16 parts (models/precision.PAIRS), the
+    products exact and the sums in float64."""
+    from nice_slam_tpu_torch.models.precision import PAIRS
+    w = fm.unpack(packed, c_dim, out_dim, n_passes)
+
+    def f32(x):
+        return x.float().double()
+
+    def parts(x):
+        hi = _bf16_values(x)
+        return (hi,) if n_passes == 1 else (hi, _bf16_values(x - hi))
+
+    def chain(a, b):
+        a, b = a.double(), b.double()
+        s = f32(a[:, 0:1] * b[0])
+        s = f32(a[:, 1:2] * b[1] + s)
+        return f32(a[:, 2:3] * b[2] + s)
+
+    pp = parts(p)
+    arg = chain(pp[0], w['B'])
+    if n_passes == 3:
+        arg = f32(f32(chain(pp[0], w['B_lo']) + chain(pp[1], w['B'])) + arg)
+    e = torch.sin(arg.float())
+
+    def mm(a, wparts):
+        ap = parts(a)
+        return sum(ap[i].double() @ wparts[j].double().T
+                   for i, j in PAIRS[n_passes])
+
+    h = e
+    for i in range(fm.N_BLOCKS):
+        x = torch.cat([e, h], dim=-1) if i - 1 in fm.SKIPS else h
+        h = (torch.relu(mm(x, w['W'][i]) + w['b'][i]) + w['bc'][i]
+             + mm(c, w['Wc'][i])).float()
+    out = (mm(h, w['W_o']) + w['b_o']).float()
+    return out if out_dim == 4 else out[:, 0]
+
+
+def bf16_share(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The bf16 modes' criterion against their plain version (chip_smoke.py
+    holds the kernel to it): the median difference at most 1e-5 of the
+    largest output, at most 2% beyond 1e-4 of it, none beyond 2e-2 of it
+    (a float32 sum on the other side of a bf16 rounding boundary moves a
+    next layer's input by one bf16 ulp)."""
+    d = (got.double() - want.double()).abs()
+    top = float(want.abs().max())
+    return {'median': float(d.median()) / top,
+            'beyond': float((d > 1e-4 * top).double().mean()),
+            'max': float(d.max()) / top}
+
+
+def bf16_held(share: dict) -> bool:
+    return (share['median'] <= 1e-5 and share['beyond'] <= 0.02
+            and share['max'] <= 2e-2)
+
+
+@pytest.mark.parametrize('name,n_passes', BF16_MODES)
+@pytest.mark.parametrize('dec,c_dim,color', DECODERS)
+def test_bf16_kernel_arithmetic_matches_plain(setup, dec, c_dim, color,
+                                              name, n_passes):
+    """Each bf16 mode's emulation over room0's bound against
+    fused_mlp_plain at the same precision, held by `bf16_held` (at 4,096
+    points, seeds 13 and 14: median 0 / 2.5e-8-4.8e-8 of the largest
+    output, 0.02-0.1% / 0 beyond 1e-4 of it, the largest 4.7e-4-2.1e-3 /
+    4.8e-6-8.2e-6, one / three passes); the other mode's plain version and
+    the float32 one are not (one pass against float32: median 3.2e-2-3.8e-2;
+    three passes against float32: 33-38% beyond 1e-4)."""
+    p, c = _room0_inputs(4096, c_dim, 13)
+    mparams = [w.detach() for w in fm.mlp_params(setup[2][dec])]
+    got = emulate_kernel_bf16(p, c, fm.pack_weights(mparams, n_passes),
+                              c_dim, 4 if color else 1, n_passes)
+    plain = fm.fused_mlp_plain(p, c, mparams, color=color, precision=name)
+    assert bf16_held(bf16_share(got, plain)), bf16_share(got, plain)
+    other = 'tensorfloat32' if n_passes == 1 else 'bfloat16'
+    for wrong in (other, None):
+        ref = fm.fused_mlp_plain(p, c, mparams, color=color,
+                                 precision=wrong)
+        assert not bf16_held(bf16_share(got, ref)), (wrong,
+                                                     bf16_share(got, ref))
+
+
+def test_bf16_modes_and_their_counters():
+    """The names with a mode, the counters, and the raise for the six- and
+    nine-pass presets before any launch."""
+    assert {n: fm.has_mode(n) for n in (
+        None, 'float32', 'F32_F32_F32', 'bfloat16', 'BF16_BF16_F32',
+        'tensorfloat32', 'BF16_BF16_F32_X3', 'BF16_BF16_F32_X6',
+        'BF16_BF16_F32_X9')} == {
+        None: True, 'float32': True, 'F32_F32_F32': True, 'bfloat16': True,
+        'BF16_BF16_F32': True, 'tensorfloat32': True,
+        'BF16_BF16_F32_X3': True, 'BF16_BF16_F32_X6': False,
+        'BF16_BF16_F32_X9': False}
+    assert fm.LAUNCHES.keys() == {'fused_mlp', 'fused_mlp_bf16x1',
+                                  'fused_mlp_bf16x3'}
+    assert [fm.pack_size(32, n) for n in (0, 1, 3)] == [31848, 8424, 16520]
+    assert [fm.pack_size(64, n) for n in (0, 1, 3)] == [42088, 10984, 21640]
+    with pytest.raises(ValueError, match='no kernel mode'):
+        fm.mode_of('BF16_BF16_F32_X9')

@@ -6,12 +6,13 @@ float32 whatever `jax.default_matmul_precision` says.  So these tests
 state the rule and hold the port to it:
 
 (a) One product, forward and its X and W gradients, for every accepted
-    name, at a hidden-layer shape and the Fourier embedding's, against a
-    float64 numpy reference of the rule with bfloat16 rounding from
-    ml_dtypes.  Per element the tolerance is the float32 summation bound
-    (K + 2) 2^-24 (|A_bf16|.|B_bf16| + |bias|) (K products and the bias
-    added in float32; three passes add two sums).  The float32 names give
-    `F.linear`'s bits and autograd's.
+    name (the six- and nine-pass presets among them), at a hidden-layer
+    shape and the Fourier embedding's, against a float64 numpy reference
+    of the rule with bfloat16 rounding from ml_dtypes.  Per element the
+    tolerance is the float32 summation bound (K + 2) 2^-24 (|A_bf16|.|B_bf16|
+    + |bias|) (K products and the bias added in float32; three passes add
+    two sums), (K + n - 1) 2^-24 for n = 6 or 9 passes (n - 1 sums of the
+    passes).  The float32 names give `F.linear`'s bits and autograd's.
 (b) The iMAP* decoder at full width (hidden 256, 4 blocks, Fourier) at
     bfloat16 against the JAX package's own `mlp_apply` with `_dense` and
     `fourier_embed` patched to the one-pass rule (`jnp.dot` of bfloat16
@@ -31,10 +32,12 @@ state the rule and hold the port to it:
     feature and the `fc_c` weights) go to the JAX side rounded to bfloat16:
     a float32 product of bfloat16 values is the one-pass product.  The
     port gets them unrounded and rounds them itself.  Held as (b).
-(d) `mlp_dispatch(fused=True)` ignores the key, as the JAX package's
-    Pallas kernel runs outside the precision scope.
-(e) A name outside the rules raises when the config is read; a pass on a
-    device other than the CPU and CUDA raises.
+(d) `mlp_dispatch(fused=True)` follows the key: the fused path stands in
+    for the JAX package's default eval path, whose decoders run under the
+    scope (on the CPU it is the plain version at the key, bit for bit).
+(e) A name outside the rules ('fastest' among them, which the JAX config
+    rejects) raises when the config is read; a pass on a device other than
+    the CPU and CUDA raises.
 About 12 s of test time in one process (the NICE decoders through the
 JAX package op by op 6 s, the iMAP* decoder 3 s).
 """
@@ -56,7 +59,13 @@ from tests.util import make_test_cfg
 
 torch.set_num_threads(2)
 
-NAMES = [*P.FLOAT32, *P.ONE_PASS, *P.THREE_PASS]
+NAMES = [*P.FLOAT32, *P.ONE_PASS, *P.THREE_PASS, *P.SIX_PASS,
+         *P.NINE_PASS]
+# the products of each rule over the split [hi, mid, lo], as
+# models/precision.PAIRS
+PAIRS = {1: [(0, 0)], 3: [(0, 1), (1, 0), (0, 0)],
+         6: [(1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)],
+         9: [(i, j) for i in range(3) for j in range(3)]}
 
 
 def _bf16(a: np.ndarray) -> np.ndarray:
@@ -66,23 +75,25 @@ def _bf16(a: np.ndarray) -> np.ndarray:
 
 
 def _split(a: np.ndarray, n_passes: int) -> list:
-    hi = _bf16(a)
-    if n_passes == 1:
-        return [hi]
-    return [hi, _bf16(np.asarray(a, np.float64) - hi)]
+    """[hi], [hi, lo] or [hi, mid, lo]: each part the bfloat16 value of
+    what the parts before it leave of `a` (in float32)."""
+    parts, rest = [], np.asarray(a, np.float32).astype(np.float64)
+    for _ in range({1: 1, 3: 2}.get(n_passes, 3)):
+        parts.append(_bf16(rest))
+        rest = rest - parts[-1]
+    return parts
 
 
 def _rule(a: np.ndarray, b: np.ndarray, n_passes: int):
     """a @ b under the rule in float64, and sum |a_i||b_i| of its terms."""
     sa, sb = _split(a, n_passes), _split(b, n_passes)
-    pairs = [(0, 0)] if n_passes == 1 else [(0, 1), (1, 0), (0, 0)]
-    out = sum(sa[i] @ sb[j] for i, j in pairs)
-    mag = sum(np.abs(sa[i]) @ np.abs(sb[j]) for i, j in pairs)
+    out = sum(sa[i] @ sb[j] for i, j in PAIRS[n_passes])
+    mag = sum(np.abs(sa[i]) @ np.abs(sb[j]) for i, j in PAIRS[n_passes])
     return out, mag
 
 
-def _within(got, want, mag, k, extra=0.0):
-    tol = (k + 2) * 2.0 ** -24 * (mag + extra)
+def _within(got, want, mag, k, extra=0.0, n_passes=1):
+    tol = (k + max(2, n_passes - 1)) * 2.0 ** -24 * (mag + extra)
     err = np.abs(np.asarray(got, np.float64) - want)
     assert (err <= tol).all(), float((err - tol).max())
 
@@ -111,11 +122,11 @@ def test_product_follows_the_rule(name, shape):
             assert torch.equal(a.grad, r.grad)
         return
     want, mag = _rule(x, w.T, n_passes)
-    _within(np_of(out), want + b, mag, k, np.abs(b))
+    _within(np_of(out), want + b, mag, k, np.abs(b), n_passes)
     want, mag = _rule(g, w, n_passes)                     # dX = G W
-    _within(np_of(tx.grad), want, mag, n)
+    _within(np_of(tx.grad), want, mag, n, n_passes=n_passes)
     want, mag = _rule(g.T, x, n_passes)                   # dW = G^T X
-    _within(np_of(tw.grad), want, mag, m)
+    _within(np_of(tw.grad), want, mag, m, n_passes=n_passes)
     np.testing.assert_allclose(np_of(tb.grad), g.sum(0), rtol=1e-5,
                                atol=1e-5)
     if n_passes == 1:      # the forward's rounded copy is the rule's bits
@@ -196,6 +207,9 @@ def test_nice_decoders_at_bfloat16(one_pass_jax):
 
 
 def test_fused_path_ignores_the_key():
+    """Since the session precision was ported the fused path follows the
+    key (the name is kept): on the CPU `mlp_dispatch(fused=True)` is the
+    decoder's own forward at bfloat16, bit for bit, not the float32 one."""
     gen = torch.Generator().manual_seed(2)
     f32 = td.init_nice_decoders(td.DecoderConfig(), generator=gen,
                                 device='cpu')
@@ -206,13 +220,14 @@ def test_fused_path_ignores_the_key():
     p = torch.from_numpy(rng.uniform(-1, 1, (300, 3)).astype(np.float32))
     c = torch.from_numpy(rng.normal(size=(300, 32)).astype(np.float32))
     with torch.no_grad():
-        want = f32['middle'](p, c)
+        want = bf['middle'](p, c)
         assert torch.equal(td.mlp_dispatch(bf['middle'], p, c, fused=True),
                            want)
-        assert not torch.equal(td.mlp_dispatch(bf['middle'], p, c), want)
+        assert torch.equal(td.mlp_dispatch(bf['middle'], p, c), want)
+        assert not torch.equal(f32['middle'](p, c), want)
 
 
-@pytest.mark.parametrize('value', ['float16', 'BF16_BF16_F32_X6', 'tf32'])
+@pytest.mark.parametrize('value', ['float16', 'fastest', 'tf32'])
 def test_unknown_precision_raises(value):
     from nice_slam_tpu_torch.utils.config import decoder_config_from_cfg
     cfg = make_test_cfg()
